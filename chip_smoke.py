@@ -1,0 +1,252 @@
+"""Chip smoke test of the PyTorch/CUDA port (geoflowslam_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) on failure:
+  1. device: the card's name, and its name and power limit as nvidia-smi
+     reports them;
+  2. build: compile the hand-written kernels (kernels/csrc/*.cu) with nvcc;
+  3. K1 fast_scores vs its plain PyTorch version on random images at every
+     level shape of the 480x640, 8-level, x1.2 pyramid, thresholds 7 and 20:
+     both maps torch.equal; kernel and plain times (CUDA events, median);
+  4. K2 gated_hamming_search vs its plain version at (N, M) = (1000, 1000)
+     and (2048, 1000), radius 7.5, octave window [-1, 1], ~10% invalid rows,
+     half the targets copying a query descriptor: best, second and idx
+     equal; kernel and plain times;
+  5. slice: 150 frames at 30 fps of the synthetic room at 640x480, rendered
+     by the port, through SlamSystem.track_rgbd with the default
+     SystemConfig (1000 features, 8 levels, k_max 256, m_max 65536): state
+     OK, >= 3 keyframes, ATE < 5 cm and RPE < 3 cm against ground truth,
+     finite poses, and every kernel launched by the slice at least once.
+The line before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
+printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from geoflowslam_tpu_torch import kernels
+from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
+from geoflowslam_tpu_torch.io.synthetic import (Camera, SyntheticSequence,
+                                                SyntheticWorld)
+from geoflowslam_tpu_torch.ops import fast as FAST
+from geoflowslam_tpu_torch.ops import matching as MA
+from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
+from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+
+KERNEL_INFO = {
+    "fast_scores": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/fast_scores.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:104"),
+    "gated_hamming_search": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/gated_hamming.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:300"),
+}
+N_FRAMES = 150
+FPS = 30.0
+
+
+def cuda_ms(fn, reps: int = 25) -> float:
+    """Median milliseconds of fn() over `reps` runs, timed with CUDA events
+    after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {name} count {torch.cuda.device_count()}")
+    print(smi.stdout.strip().splitlines()[0])
+    return name
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    path = kernels.build()
+    kernels.load()
+    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in kernels.build_log().splitlines():
+        if "registers" in line or "smem" in line or "Compiling" in line:
+            print(f"[build] {line.strip()}")
+
+
+def phase_fast(summary):
+    rs = np.random.RandomState(0)
+    err = 0.0
+    for h, w in pyramid_shapes(480, 640, 8, 1.2):
+        img = torch.from_numpy(
+            (rs.rand(h, w) * 255).astype(np.float32)).cuda()
+        lo_k, hi_k = kernels.fast_scores(img, 7.0, 20.0)
+        lo_p, hi_p = FAST.fast_score_maps(img, [7.0, 20.0])
+        torch.cuda.synchronize()
+        if not (torch.equal(lo_k, lo_p) and torch.equal(hi_k, hi_p)):
+            raise AssertionError(f"fast_scores differs from plain at {h}x{w}")
+        e = max(float((lo_k - lo_p).abs().max()),
+                float((hi_k - hi_p).abs().max()))
+        err = max(err, e)
+        ms = cuda_ms(lambda: kernels.fast_scores(img, 7.0, 20.0))
+        pms = cuda_ms(lambda: FAST.fast_score_maps(img, [7.0, 20.0]))
+        print(f"[K1] fast_scores {h}x{w}: equal, max_abs_err {e}, "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        if (h, w) == (480, 640):
+            summary["fast_scores"].update(ms=ms, plain_ms=pms)
+    summary["fast_scores"]["max_abs_err"] = err
+
+
+def _k2_inputs(n, m, seed):
+    rs = np.random.RandomState(seed)
+    dq = rs.randint(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    dt = rs.randint(0, 2 ** 32, (m, 8), dtype=np.uint64).astype(np.uint32)
+    dt[: m // 2] = dq[: m // 2]
+    uv_q = (rs.rand(n, 2) * 640).astype(np.float32)
+    uv_t = uv_q[:m] + (rs.randn(m, 2) * 2).astype(np.float32)
+    lvl_q = rs.randint(0, 8, n).astype(np.int32)
+    lvl_t = rs.randint(0, 8, m).astype(np.int32)
+    vq = rs.rand(n) > 0.1
+    vt = rs.rand(m) > 0.1
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return dict(uv_q=c(uv_q), level_q=c(lvl_q), valid_q=c(vq),
+                desc_q=c(dq.view(np.int32)),
+                radius=torch.full((n,), 7.5, device="cuda"),
+                uv_t=c(uv_t), level_t=c(lvl_t), valid_t=c(vt),
+                desc_t=c(dt.view(np.int32)))
+
+
+def phase_hamming(summary):
+    worst = 0
+    for n, m in ((1000, 1000), (2048, 1000)):
+        a = _k2_inputs(n, m, seed=n + m)
+        args = (a["uv_q"], a["level_q"], a["valid_q"], a["desc_q"],
+                a["radius"], a["uv_t"], a["level_t"], a["valid_t"],
+                a["desc_t"])
+        k = kernels.gated_hamming_search(*args, -1, 1, MA.BIG)
+        p = MA.gated_hamming_plain(*args, -1, 1)
+        torch.cuda.synchronize()
+        err = max(int((x - y).abs().max()) for x, y in zip(k, p))
+        for name, x, y in zip(("best", "second", "idx"), k, p):
+            if not torch.equal(x, y):
+                bad = int((x != y).sum())
+                raise AssertionError(
+                    f"gated_hamming_search {name} differs from plain at "
+                    f"N={n} M={m} in {bad} rows")
+        n_match = int((k[2] >= 0).sum())
+        ms = cuda_ms(lambda: kernels.gated_hamming_search(*args, -1, 1,
+                                                          MA.BIG))
+        pms = cuda_ms(lambda: MA.gated_hamming_plain(*args, -1, 1))
+        print(f"[K2] gated_hamming_search N={n} M={m}: equal "
+              f"({n_match} rows with a candidate), kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        if n == 2048:
+            summary["gated_hamming_search"].update(ms=ms, plain_ms=pms)
+        worst = max(worst, err)
+    summary["gated_hamming_search"]["max_abs_err"] = float(worst)
+
+
+def phase_slice(summary):
+    dev = torch.device("cuda")
+    cfg = SystemConfig()
+    cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+                 width=cfg.frame.orb.width, height=cfg.frame.orb.height)
+    seq = SyntheticSequence(SyntheticWorld(cam, device=dev), fps=FPS)
+    t0 = time.perf_counter()
+    frames = []
+    for i in range(N_FRAMES):
+        gray, depth, (rot_cw, t_cw) = seq.frame(i / FPS)
+        frames.append((gray, depth, rot_cw.cpu().numpy().astype(np.float64),
+                       t_cw.cpu().numpy().astype(np.float64)))
+    torch.cuda.synchronize()
+    print(f"[slice] rendered {N_FRAMES} frames {cam.width}x{cam.height} "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    slam = SlamSystem(cfg, device=dev)
+    kernels.reset_launch_counts()
+    gt, ms_per_frame = [], []
+    for i, (gray, depth, rot_cw, t_cw) in enumerate(frames):
+        t = i / FPS
+        t1 = time.perf_counter()
+        slam.track_rgbd(gray, depth, t)
+        torch.cuda.synchronize()
+        ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
+        twc = np.eye(4)
+        twc[:3, :3] = rot_cw.T
+        twc[:3, 3] = -rot_cw.T @ t_cw
+        gt.append((t, twc))
+    launches = dict(kernels.launch_counts)
+
+    stats = slam.map_stats()
+    traj = slam.trajectory
+    poses = np.stack([p for _, p in traj])
+    ate = ate_rmse(traj, gt)
+    rp = rpe(traj, gt)
+    steady = np.asarray(ms_per_frame[1:])
+    print(f"[slice] state {stats['state']}, {stats['n_kfs']} KFs, "
+          f"{stats['n_mps']} map points, {len(traj)} poses, "
+          f"ATE {ate['ate_rmse'] * 100:.3f} cm, RPE {rp['rpe_trans'] * 100:.3f}"
+          f" cm / {rp['rpe_rot_deg']:.4f} deg")
+    print(f"[slice] ms/frame (frames 2..{N_FRAMES}): median "
+          f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
+          f"first frame {ms_per_frame[0]:.1f} ms")
+    print(f"[slice] kernel launches: {launches}")
+    if stats["state"] != "OK":
+        raise AssertionError(f"slice ended in state {stats['state']}")
+    if stats["n_kfs"] < 3:
+        raise AssertionError(f"slice made only {stats['n_kfs']} keyframes")
+    if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
+        raise AssertionError("non-finite or misshapen poses")
+    if not ate["ate_rmse"] < 0.05:
+        raise AssertionError(f"ATE {ate['ate_rmse']} m >= 5 cm")
+    if not rp["rpe_trans"] < 0.03:
+        raise AssertionError(f"RPE {rp['rpe_trans']} m >= 3 cm")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched in the slice")
+        summary[name]["launches"] = count
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    name = phase_device()
+    summary = {k: dict(name=k, route="cuda", **v)
+               for k, v in KERNEL_INFO.items()}
+    phase_build()
+    phase_fast(summary)
+    phase_hamming(summary)
+    phase_slice(summary)
+    print(json.dumps({"kernels": [
+        {k: s[k] for k in ("name", "route", "source", "replaces", "launches",
+                           "max_abs_err", "ms", "plain_ms")}
+        for s in summary.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

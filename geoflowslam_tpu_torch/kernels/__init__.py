@@ -1,0 +1,175 @@
+"""Hand-written CUDA kernels of the port and their launchers.
+
+The sources live in csrc/ and are built at first use with nvcc for sm_90a
+into kernels/_build/ (listed in .gitignore), as one shared library with a
+plain C interface that ctypes loads: a file without PyTorch's headers
+builds in seconds. Nothing is built or imported when this module is
+imported; the CPU tests import it on machines without nvcc.
+
+Each launcher takes CUDA tensors only, checks device, dtype, shape and
+contiguity, launches on PyTorch's current stream without synchronising,
+raises if the launch is refused, and adds one to its entry of
+`launch_counts`. Dispatch between a kernel and its plain PyTorch version
+happens in the ops modules (ops/fast.py, ops/matching.py), by the device of
+the input tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("fast_scores.cu", "gated_hamming.cu")
+CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")   # used when nvcc is not on PATH
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# kernel name -> launches since the last reset_launch_counts()
+launch_counts = {"fast_scores": 0, "gated_hamming_search": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and CUDA_NVCC.exists():
+        nvcc = str(CUDA_NVCC)
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def library_path() -> Path:
+    """Build target, named by a digest of the sources and flags, so that an
+    edited source never loads a stale library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update((CSRC_DIR / src).read_bytes())
+    return BUILD_DIR / f"libgfs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels (once per source digest); returns the library."""
+    global _build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC_DIR / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    _build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{_build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    """nvcc's output of the last build in this process (ptxas -v lines)."""
+    return _build_log
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.gfs_fast_scores.argtypes = [p, p, p, i, i, f, f, p]
+            lib.gfs_fast_scores.restype = i
+            lib.gfs_gated_hamming.argtypes = [p] * 9 + [i] * 5 + [p] * 4
+            lib.gfs_gated_hamming.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def fast_scores(img: torch.Tensor, th_lo: float, th_hi: float):
+    """FAST-9 responses of img [H, W] float32 at two thresholds (kernel
+    csrc/fast_scores.cu). Returns (score_lo, score_hi), each [H, W]."""
+    h, w = img.shape
+    _check("img", img, torch.float32, (h, w))
+    lib = load()
+    lo = torch.empty_like(img)
+    hi = torch.empty_like(img)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.gfs_fast_scores(img.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                                  h, w, float(th_lo), float(th_hi), stream)
+    _raise_on(err, "fast_scores")
+    launch_counts["fast_scores"] += 1
+    return lo, hi
+
+
+def gated_hamming_search(q_uv, q_level, q_valid, q_desc, q_radius,
+                         t_uv, t_level, t_valid, t_desc,
+                         min_off: int, max_off: int, big: int):
+    """Gated best/second Hamming search (kernel csrc/gated_hamming.cu).
+
+    q_*: uv [N,2] f32, level [N] i32, valid [N] bool, desc [N,8] i32 (the
+    256 descriptor bits), radius [N] f32; t_*: the same over [M] without a
+    radius. Returns (best [N] i32, second [N] i32, idx [N] i32) with
+    (big, big, -1) where no target passes the gates."""
+    n, m = q_uv.shape[0], t_uv.shape[0]
+    _check("q_uv", q_uv, torch.float32, (n, 2))
+    _check("q_level", q_level, torch.int32, (n,))
+    _check("q_valid", q_valid, torch.bool, (n,))
+    _check("q_desc", q_desc, torch.int32, (n, 8))
+    _check("q_radius", q_radius, torch.float32, (n,))
+    _check("t_uv", t_uv, torch.float32, (m, 2))
+    _check("t_level", t_level, torch.int32, (m,))
+    _check("t_valid", t_valid, torch.bool, (m,))
+    _check("t_desc", t_desc, torch.int32, (m, 8))
+    dev = q_uv.device
+    best = torch.empty((n,), dtype=torch.int32, device=dev)
+    second = torch.empty((n,), dtype=torch.int32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return best, second, idx
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gfs_gated_hamming(
+            q_uv.data_ptr(), q_level.data_ptr(), q_valid.data_ptr(),
+            q_desc.data_ptr(), q_radius.data_ptr(), t_uv.data_ptr(),
+            t_level.data_ptr(), t_valid.data_ptr(), t_desc.data_ptr(),
+            n, m, int(min_off), int(max_off), int(big),
+            best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "gated_hamming_search")
+    launch_counts["gated_hamming_search"] += 1
+    return best, second, idx

@@ -1,0 +1,126 @@
+"""Descriptor matching (port of geoflowslam_tpu/ops/matching.py).
+
+Descriptors are [N, 8] int32 tensors holding the 256 bits of the reference's
+[N, 8] uint32 words (torch's uint32 supports few ops; the bits are the
+same). `hamming_matrix` is the plain dense version; `search_by_projection`
+dispatches its gated best/second search by device: CUDA tensors go to the
+hand-written kernel (kernels/csrc/gated_hamming.cu), CPU tensors to
+`gated_hamming_plain`, the mask path of the reference's XLA branch
+(spatial_mask, level_mask, match_descriptors(mutual=False)). The ratio and
+max-distance tests stay here around either.
+"""
+from __future__ import annotations
+
+import torch
+
+from geoflowslam_tpu_torch import kernels
+from geoflowslam_tpu_torch.config import TH_HIGH, TH_LOW
+
+BIG = 1 << 20   # distance of a pair that no gate lets through
+
+
+def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 words -> [N, 256] float32 in {-1, +1} (bit j of word w is
+    element 32 w + j)."""
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int64)
+    bits = (desc.long()[:, :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[0], 256).float() * 2.0 - 1.0
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """[N,8] x [M,8] -> [N,M] int32 Hamming distances. With a, b in
+    {-1,+1}^256, dot = 256 - 2 hamming; the float32 sums of +-1 are exact."""
+    a = unpack_bits_pm1(desc_a)
+    b = unpack_bits_pm1(desc_b)
+    return ((256.0 - a @ b.T) * 0.5).to(torch.int32)
+
+
+def _best_two(dist: torch.Tensor):
+    """Per-row best and second-best distance and the best's index, ties to
+    the lowest index (jax.lax.top_k(-dist, 2))."""
+    m = dist.shape[1]
+    best = dist.min(dim=1).values
+    cols = torch.arange(m, device=dist.device)
+    bidx = torch.where(dist == best[:, None], cols, m).min(dim=1).values
+    second = torch.where(cols[None, :] == bidx[:, None], BIG,
+                         dist).min(dim=1).values
+    return best, second, bidx
+
+
+def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_dist=TH_LOW,
+                      ratio: float = 0.9, mutual: bool = True, mask=None):
+    """Nearest-neighbour Hamming match with the ratio test and an optional
+    mutual check. Returns (match_idx [N] into B or -1, match_dist [N])."""
+    dist = hamming_matrix(desc_a, desc_b)
+    invalid = (~valid_a[:, None]) | (~valid_b[None, :])
+    if mask is not None:
+        invalid = invalid | (~mask)
+    dist = torch.where(invalid, BIG, dist)
+    best, second, bidx = _best_two(dist)
+    ok = (best <= max_dist) & (best.float() <= ratio * second.float())
+    if mutual:
+        b_best_a = torch.argmin(dist.T, dim=1)
+        ok = ok & (b_best_a[bidx] == torch.arange(desc_a.shape[0],
+                                                  device=dist.device))
+    return (torch.where(ok, bidx, -1).to(torch.int32),
+            torch.where(ok, best, BIG).to(torch.int32))
+
+
+def spatial_mask(uv_query, uv_target, radius):
+    """[N,2] query centres vs [M,2] targets, per-query radius [N] -> [N,M]."""
+    d = uv_query[:, None, :] - uv_target[None, :, :]
+    r = radius[:, None]
+    return (torch.abs(d[..., 0]) <= r) & (torch.abs(d[..., 1]) <= r)
+
+
+def level_mask(level_query, level_target, min_off: int = 0, max_off: int = 1):
+    """Octave gate: target level within [pred + min_off, pred + max_off]."""
+    d = level_target[None, :] - level_query[:, None]
+    return (d >= min_off) & (d <= max_off)
+
+
+def gated_hamming_plain(uv_q, level_q, valid_q, desc_q, radius,
+                        uv_t, level_t, valid_t, desc_t,
+                        min_off: int, max_off: int):
+    """Plain version of the gated search kernel: (best, second, idx) int32,
+    (BIG, BIG, -1) where no target passes the gates."""
+    mask = spatial_mask(uv_q, uv_t, radius)
+    mask = mask & level_mask(level_q, level_t, min_off, max_off)
+    mask = mask & valid_q[:, None] & valid_t[None, :]
+    dist = torch.where(mask, hamming_matrix(desc_q, desc_t), BIG)
+    best, second, bidx = _best_two(dist)
+    idx = torch.where(best < BIG, bidx, -1)
+    return best.to(torch.int32), second.to(torch.int32), idx.to(torch.int32)
+
+
+def gated_hamming(uv_q, level_q, valid_q, desc_q, radius,
+                  uv_t, level_t, valid_t, desc_t, min_off: int, max_off: int):
+    """Device dispatch of the gated search: kernel on CUDA, plain on CPU."""
+    if uv_q.is_cuda:
+        return kernels.gated_hamming_search(
+            uv_q.float().contiguous(), level_q.int().contiguous(),
+            valid_q.bool().contiguous(), desc_q.int().contiguous(),
+            radius.float().contiguous(), uv_t.float().contiguous(),
+            level_t.int().contiguous(), valid_t.bool().contiguous(),
+            desc_t.int().contiguous(), min_off, max_off, BIG)
+    if uv_q.device.type != "cpu":
+        raise ValueError(f"gated_hamming: unsupported device {uv_q.device}")
+    return gated_hamming_plain(uv_q, level_q, valid_q, desc_q, radius,
+                               uv_t, level_t, valid_t, desc_t,
+                               min_off, max_off)
+
+
+def search_by_projection(uv_proj, level_pred, valid_proj, desc_query, feat_uv,
+                         feat_level, feat_desc, feat_valid, radius,
+                         max_dist=TH_HIGH, ratio=0.9,
+                         min_off: int = -1, max_off: int = 1):
+    """Search by projection (ORBmatcher::SearchByProjection): the gated
+    best/second search, then the max-distance and ratio tests.
+    Returns (match_idx [N] into the target features or -1, dist [N])."""
+    best, second, bidx = gated_hamming(
+        uv_proj, level_pred, valid_proj, desc_query, radius,
+        feat_uv, feat_level, feat_valid, feat_desc, min_off, max_off)
+    ok = ((bidx >= 0) & (best <= max_dist)
+          & (best.float() <= ratio * second.float()))
+    return (torch.where(ok, bidx, -1).to(torch.int32),
+            torch.where(ok, best, BIG).to(torch.int32))

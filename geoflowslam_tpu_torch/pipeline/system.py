@@ -1,0 +1,366 @@
+"""RGB-D SLAM façade of the port (the synchronous counterpart of
+geoflowslam_tpu/pipeline/system.py's RGB-D path).
+
+Per frame, in the caller's thread, on the system's device:
+  motion-model pose prediction -> build_frame -> track_with_motion_model
+  (wide-radius retry from the last pose when it fails) -> track_local_map
+  -> accept or reject (min_inliers_ok) -> NeedNewKeyFrame -> on a keyframe,
+  one local_mapping.mapping_step -> trajectory record (t, T_cr, ref KF).
+The host reads the inlier counts once per stage and the pose once per frame;
+there is no deferred decision ring and no reader thread: a local card needs
+neither. Initialization is StereoInitialization; RECENTLY_LOST -> LOST ->
+new map follows the reference without relocalization.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.pipeline import local_mapping as LM
+from geoflowslam_tpu_torch.pipeline import tracking as T
+from geoflowslam_tpu_torch.state import map_state as M
+from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
+                                               check_supported)
+
+
+class TrackingState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    RECENTLY_LOST = 2
+    LOST = 3
+
+
+def check_config(cfg: SystemConfig) -> None:
+    """Raise on options outside the ported RGB-D slice."""
+    off = {"imu": cfg.imu is None, "loop": cfg.loop is None,
+           "use_of": not cfg.use_of, "use_icp": not cfg.use_icp,
+           "use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
+           "stereo_fisheye": cfg.stereo_fisheye is None,
+           "record_reproj_err": not cfg.record_reproj_err,
+           "local_ba_every_kf=False": cfg.local_ba_every_kf,
+           f"sensor={cfg.sensor!r}": cfg.sensor == "rgbd"}
+    bad = [name for name, ok in off.items() if not ok]
+    if bad:
+        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+    check_supported(cfg.frame)
+
+
+class SlamSystem:
+    """RGB-D SLAM on one device. `device` is required to be explicit; a CUDA
+    device without CUDA raises instead of running on the CPU."""
+
+    def __init__(self, cfg: SystemConfig, device: torch.device | str):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SlamSystem: CUDA device requested but "
+                               "torch.cuda.is_available() is False")
+        check_config(cfg)
+        self.cfg = cfg
+        self.device = dev
+        self.tcfg = cfg.track_cfg()
+        self.mcfg = cfg.map_cfg()
+        self.ms = M.create(cfg.k_max, cfg.frame.orb.n_features, cfg.m_max, dev)
+        self.state = TrackingState.NOT_INITIALIZED
+        self.cur_rot = torch.eye(3, device=dev)
+        self.cur_t = torch.zeros(3, device=dev)
+        self.vel = (torch.eye(3, device=dev), torch.zeros(3, device=dev))
+        self.has_vel = False
+        self.last_obs_mp: Optional[torch.Tensor] = None
+        self.last_levels: Optional[torch.Tensor] = None
+        self.local_masks = None
+        self.ref_kf = 0
+        self.ref_kf_inliers = 0
+        self.frames_since_kf = 0
+        self.last_time = 0.0
+        self.time_base: Optional[float] = None
+        self.lost_since: Optional[float] = None
+        self.n_frames = 0
+        self.n_lost = 0
+        self.inlier_log = []          # (t, n_motion_model, n_local_map)
+        # trajectory: (t, Twc) before the first KF, else (t, Twc, ref KF,
+        # generation, T_cr 3x4); exported poses rebase onto the ref KF's
+        # current pose (mlRelativeFramePoses), walking the chain of culled
+        # KFs through their recorded T_culled<-parent
+        self._traj: list = []
+        self._lost_stamps: set = set()
+        self._kf_gen: dict = {}
+        self._gen_counter = 0
+        self._culled_rel: dict = {}
+
+    # -- public API ----------------------------------------------------------
+
+    def track_rgbd(self, gray, depth, timestamp: float) -> np.ndarray:
+        """Track one frame (gray [H, W] 0..255, depth [H, W] in metres x
+        depth_map_factor, numpy or tensors). Returns Twc 4x4 (float64)."""
+        gray = torch.as_tensor(gray).to(self.device)
+        depth = torch.as_tensor(depth).to(self.device)
+        self._t_rel(timestamp)
+        if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
+                and timestamp < self.last_time):
+            warnings.warn("frame timestamp older than the previous frame: "
+                          "resetting the active map")
+            self.reset_active_map()
+        frame = build_frame(gray, depth, self.cfg.frame, self.cfg.fx,
+                            self.cfg.fy, self.cfg.cx, self.cfg.cy)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            self._initialize(frame, timestamp)
+        else:
+            self._track_frame(frame, timestamp)
+        self.last_time = timestamp
+        self.n_frames += 1
+        self.last_levels = frame.feat.level
+        return self._record_pose(timestamp)
+
+    def map_stats(self):
+        return {
+            "n_kfs": int(self.ms.kf_valid.sum()),
+            "n_mps": int(self.ms.mp_valid.sum()),
+            "n_maps": int(self.ms.n_maps),
+            "state": self.state.name,
+        }
+
+    def current_pose_wc(self) -> np.ndarray:
+        """Twc 4x4 (camera-to-world), float64."""
+        return _twc(self.cur_rot.cpu().numpy(), self.cur_t.cpu().numpy())
+
+    @property
+    def trajectory(self):
+        """[(t, Twc 4x4)] with lost frames skipped and every entry rebased
+        onto its reference KF's current pose (SaveTrajectoryTUM)."""
+        kf_rot = self.ms.kf_rot.cpu().numpy().astype(np.float64)
+        kf_t = self.ms.kf_t.cpu().numpy().astype(np.float64)
+        kf_valid = self.ms.kf_valid.cpu().numpy()
+        out = []
+        for e in self._traj:
+            if round(e[0], 6) in self._lost_stamps:
+                continue
+            if len(e) == 2:
+                out.append(e)
+                continue
+            ts, twc, ref, gen, trel = e
+            hops = 0
+            while (ref, gen) in self._culled_rel and hops < 64:
+                prev, pgen, tcp = self._culled_rel[(ref, gen)]
+                r_cr, t_cr = trel[:, :3], trel[:, 3]
+                trel = np.concatenate([r_cr @ tcp[:, :3],
+                                       (r_cr @ tcp[:, 3] + t_cr)[:, None]], 1)
+                ref, gen = prev, pgen
+                hops += 1
+            if not (0 <= ref < len(kf_valid) and bool(kf_valid[ref])
+                    and self._kf_gen.get(ref) == gen):
+                out.append((ts, twc))
+                continue
+            r_cw = trel[:, :3] @ kf_rot[ref]
+            t_cw = trel[:, :3] @ kf_t[ref] + trel[:, 3]
+            out.append((ts, _twc(r_cw, t_cw)))
+        return out
+
+    def reset_active_map(self):
+        """System::ResetActiveMap: reinitialize in a fresh Atlas map."""
+        self.ms = M.create_new_map(self.ms)
+        self._restart()
+
+    # -- internals -------------------------------------------------------------
+
+    def _restart(self):
+        self.state = TrackingState.NOT_INITIALIZED
+        self.has_vel = False
+        self.last_obs_mp = None
+        self.local_masks = None
+
+    def _t_rel(self, timestamp: float) -> float:
+        """Seconds since the session's first frame (f64 on the host; small
+        enough for exact float32 storage in the map)."""
+        if self.time_base is None:
+            self.time_base = float(timestamp)
+        return float(timestamp) - self.time_base
+
+    def _free_kf_slot(self) -> int:
+        """A slot for the next KF; when every slot holds a live KF of the
+        active map, force an aggressive redundancy cull or raise."""
+        if int(M.kf_capacity_left(self.ms)) == 0:
+            ms, culled = LM.keyframe_culling(
+                self.ms, self.ref_kf, protect_recent=0.25, redundancy=0.6)
+            culled_i = int(culled)
+            if culled_i >= 0:
+                self._on_kf_culled(ms, culled_i)
+                self.ms = ms
+            if int(M.kf_capacity_left(self.ms)) == 0:
+                raise RuntimeError(
+                    f"KeyFrame capacity exhausted: all {self.ms.k_max} slots "
+                    "hold live KFs of the active map and none is redundant "
+                    "enough to cull. Raise SystemConfig.k_max.")
+        return int(M.free_kf_slot(self.ms))
+
+    def _initialize(self, frame: FrameData, timestamp: float):
+        slot = self._free_kf_slot()
+        ms, res = T.stereo_initialization(self.ms, frame,
+                                          self._t_rel(timestamp), slot,
+                                          self.tcfg)
+        n = int(res.n_inliers)
+        if n < 50:
+            return  # not enough depth points; wait for a better frame
+        self.ms = ms
+        self.cur_rot, self.cur_t = res.rot, res.t
+        self.last_obs_mp = res.obs_mp
+        self.local_masks = None
+        self.ref_kf = slot
+        self.ref_kf_inliers = n
+        self.frames_since_kf = 0
+        self.state = TrackingState.OK
+        self._gen_counter += 1
+        self._kf_gen[slot] = self._gen_counter
+
+    def _track_frame(self, frame: FrameData, timestamp: float):
+        min_ok = self.cfg.min_inliers_ok
+        last_rot, last_t = self.cur_rot, self.cur_t
+        if self.has_vel:
+            pr, pt = lie.se3_compose(self.vel[0], self.vel[1], last_rot,
+                                     last_t)
+        else:
+            pr, pt = last_rot, last_t
+        res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
+                                        pt, self.tcfg, self.last_levels)
+        n1 = int(res.n_inliers)
+        if n1 < min_ok:
+            # search wider from the unpredicted pose
+            wide = dataclasses.replace(self.tcfg, search_radius_mm=40.0)
+            res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp,
+                                            last_rot, last_t, wide,
+                                            self.last_levels)
+            n1 = int(res.n_inliers)
+        ms2, res2, n2 = self.ms, res, n1
+        if n1 >= min_ok:
+            if self.local_masks is None:
+                self.local_masks = M.local_window(
+                    self.ms, self.ref_kf, self.tcfg.local_window,
+                    self.tcfg.lm_max_candidates)
+            ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
+                                          res.t, self.tcfg, self.local_masks)
+            n2 = int(res2.n_inliers)
+        self.inlier_log.append((round(timestamp, 4), n1, n2))
+        if len(self.inlier_log) > 4096:
+            del self.inlier_log[:2048]
+
+        if n2 >= min_ok:
+            self.state = TrackingState.OK
+            self.lost_since = None
+            self.ms = ms2
+            self.cur_rot, self.cur_t = res2.rot, res2.t
+            self.last_obs_mp = res2.obs_mp
+            # motion model Tcl = Tcw Tlw^-1, translation clamped to 0.5 m
+            lri, lti = lie.se3_inverse(last_rot, last_t)
+            vr, vt = lie.se3_compose(self.cur_rot, self.cur_t, lri, lti)
+            vt = vt * torch.clamp(0.5 / torch.clamp_min(
+                torch.linalg.norm(vt), 1e-9), max=1.0)
+            self.vel = (vr, vt)
+            self.has_vel = True
+            self.frames_since_kf += 1
+            if self._need_new_keyframe(n2):
+                self._insert_keyframe(frame, timestamp, res2, n2)
+            return
+        self.n_lost += 1
+        self.has_vel = False
+        if self.state == TrackingState.OK:
+            self.state = TrackingState.RECENTLY_LOST
+            self.lost_since = timestamp
+        if (self.state == TrackingState.RECENTLY_LOST
+                and timestamp - self.lost_since > self.cfg.time_recently_lost):
+            self.state = TrackingState.LOST
+            self._reset_or_new_map()
+
+    def _need_new_keyframe(self, n_inliers: int) -> bool:
+        """NeedNewKeyFrame essentials (no IMU cadence)."""
+        ref = max(self.ref_kf_inliers, 1)
+        if n_inliers < 0.35 * ref and self.frames_since_kf >= 1:
+            return True   # tracking cliff: insert regardless of cadence
+        if self.frames_since_kf < self.cfg.kf_min_interval:
+            return False
+        if self.frames_since_kf >= self.cfg.kf_max_interval:
+            return True
+        return n_inliers < self.cfg.kf_tracked_ratio * ref
+
+    def _insert_keyframe(self, frame: FrameData, timestamp: float,
+                         res: T.TrackResult, n_inliers: int):
+        slot = self._free_kf_slot()
+        ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
+            self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
+            res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg)
+        culled_i = int(culled)
+        if culled_i >= 0:
+            self._on_kf_culled(ms, culled_i)
+        self.ms = ms
+        self.local_masks = masks
+        # the tracked pose is the KF's pose before BA: fold BA's correction
+        # of the KF into it (cur o old^-1 o new); the frame-to-frame motion
+        # model is invariant to this right-side world correction
+        ri, ti = lie.se3_inverse(res.rot, res.t)
+        dr, dt = lie.se3_compose(ri, ti, kf_rot, kf_t)
+        self.cur_rot, self.cur_t = lie.se3_compose(self.cur_rot, self.cur_t,
+                                                   dr, dt)
+        self.last_obs_mp = new_obs
+        self.ref_kf = slot
+        self.ref_kf_inliers = n_inliers
+        self.frames_since_kf = 0
+        self._gen_counter += 1
+        self._kf_gen[slot] = self._gen_counter
+
+    def _on_kf_culled(self, ms: M.MapState, culled: int):
+        """Snapshot T_culled<-parent for trajectory rebasing (mTcp)."""
+        gen = self._kf_gen.get(culled)
+        prev = int(ms.kf_prev[culled])
+        if gen is not None and 0 <= prev < ms.k_max and bool(
+                ms.kf_valid[prev]):
+            rc, tc = ms.kf_rot[culled], ms.kf_t[culled]
+            rp, tp = ms.kf_rot[prev], ms.kf_t[prev]
+            r_cp = rc @ rp.T
+            t_cp = tc - r_cp @ tp
+            rel = torch.cat([r_cp, t_cp[:, None]], 1).cpu().numpy()
+            self._culled_rel[(culled, gen)] = (prev, self._kf_gen.get(prev),
+                                               rel.astype(np.float64))
+
+    def _reset_or_new_map(self):
+        """Atlas recovery: start a new map when the active one holds enough
+        KFs (Tracking::CreateMapInAtlas), then reinitialize."""
+        ms = self.ms
+        n_kfs = int((ms.kf_valid & (ms.kf_map_id == ms.active_map)).sum())
+        if n_kfs >= self.cfg.min_kfs_for_new_map:
+            self.ms = M.create_new_map(self.ms)
+        self._restart()
+
+    def _record_pose(self, timestamp: float) -> np.ndarray:
+        """Record the pose relative to the reference KF, with one device
+        read of the current and the reference KF pose."""
+        if self.state in (TrackingState.RECENTLY_LOST, TrackingState.LOST):
+            self._lost_stamps.add(round(timestamp, 6))
+        ref = self.ref_kf
+        gen = self._kf_gen.get(ref)
+        both = torch.stack([
+            torch.cat([self.cur_rot, self.cur_t[:, None]], 1),
+            torch.cat([self.ms.kf_rot[ref], self.ms.kf_t[ref][:, None]], 1),
+        ]).cpu().numpy().astype(np.float64)
+        r_cw, t_cw = both[0, :, :3], both[0, :, 3]
+        twc = _twc(r_cw, t_cw)
+        if gen is None:
+            self._traj.append((timestamp, twc))
+            return twc
+        r_cr = r_cw @ both[1, :, :3].T
+        t_cr = t_cw - r_cr @ both[1, :, 3]
+        self._traj.append((timestamp, twc, ref, gen,
+                           np.concatenate([r_cr, t_cr[:, None]], 1)))
+        return twc
+
+
+def _twc(r_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
+    """4x4 camera-to-world from Tcw (float64)."""
+    out = np.eye(4)
+    out[:3, :3] = np.asarray(r_cw, np.float64).T
+    out[:3, 3] = -out[:3, :3] @ np.asarray(t_cw, np.float64)
+    return out

@@ -1,0 +1,53 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card (marker `cuda`; skipped without one). On the machine with the card,
+which has no JAX for tests/conftest.py to import:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from geoflowslam_tpu_torch import kernels
+from geoflowslam_tpu_torch.ops import fast as F
+from geoflowslam_tpu_torch.ops import matching as MA
+from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_fast_scores_kernel_exact(cuda):
+    rs = np.random.RandomState(0)
+    for h, w in pyramid_shapes(480, 640, 8, 1.2) + [(7, 7), (33, 1)]:
+        img = torch.from_numpy((rs.rand(h, w) * 255).astype(np.float32)).to(cuda)
+        got = kernels.fast_scores(img, 7.0, 20.0)
+        want = F.fast_score_maps(img, [7.0, 20.0])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,m", [(1000, 1000), (2048, 1000), (37, 300)])
+def test_gated_hamming_kernel_exact(cuda, n, m):
+    rs = np.random.RandomState(n + m)
+    dq = rs.randint(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64).astype(np.int32)
+    dt = rs.randint(-2 ** 31, 2 ** 31, (m, 8), dtype=np.int64).astype(np.int32)
+    k = min(n, m) // 2
+    dt[:k] = dq[:k]
+    dt[k:k + 10] = dt[:10]                   # duplicate targets: index ties
+    uv_q = (rs.rand(n, 2) * 640).astype(np.float32)
+    uv_t = np.resize(uv_q, (m, 2)) + (rs.randn(m, 2) * 2).astype(np.float32)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    args = (c(uv_q), c(rs.randint(0, 8, n).astype(np.int32)),
+            c(rs.rand(n) > 0.1), c(dq), torch.full((n,), 7.5, device=cuda),
+            c(uv_t.astype(np.float32)), c(rs.randint(0, 8, m).astype(np.int32)),
+            c(rs.rand(m) > 0.1), c(dt))
+    got = kernels.gated_hamming_search(*args, -1, 1, MA.BIG)
+    want = MA.gated_hamming_plain(*args, -1, 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
