@@ -15,17 +15,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and (2048, 1000), radius 7.5, octave window [-1, 1], ~10% invalid rows,
      half the targets copying a query descriptor: best, second and idx
      equal; kernel and plain times;
-  5. slice: 150 frames at 30 fps of the synthetic room at 640x480, rendered
-     by the port, through SlamSystem.track_rgbd with the default
+  5. K3 lk_level vs its plain version (ops/klt._track_level) on smooth
+     random textures at the four LK level shapes of 480x640, N = 1256
+     points (~5% near or past the border, some on a flat patch), guesses
+     up to 3 px off, win 21 and 31, 10 iterations: where both say ok the
+     tracked points agree within 1e-3 px and err within 1e-4, and ok
+     differs on at most 0.5% of the points; kernel and plain times;
+  6. RGB-D path: 150 frames at 30 fps of the synthetic room at 640x480,
+     rendered by the port, through SlamSystem.track_rgbd with the default
      SystemConfig (1000 features, 8 levels, k_max 256, m_max 65536): state
      OK, >= 3 keyframes, ATE < 5 cm and RPE < 3 cm against ground truth,
-     finite poses, and every kernel launched by the slice at least once.
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
-printing any result.
+     finite poses, and K1 and K2 launched by the path;
+  7. OF/ICP path: the same with use_of, use_icp and n_of_slots = 256, 150
+     frames at 10 fps, a fresh map: the same gates, optical-flow points
+     appended, at least one accepted ICP prediction, and K1, K2 and K3
+     launched by the path.
+Each path's launch counts are set to 0 just before it and read just after.
+The line before the last is a JSON summary of the kernels (launches summed
+over the two paths); the last line is {"ok": true, "device": {...}}.
+Without a CUDA card it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,12 +46,15 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from geoflowslam_tpu_torch import kernels
-from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.config import FrameConfig, SystemConfig
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
 from geoflowslam_tpu_torch.io.synthetic import (Camera, SyntheticSequence,
                                                 SyntheticWorld)
 from geoflowslam_tpu_torch.ops import fast as FAST
+from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
@@ -51,9 +66,23 @@ KERNEL_INFO = {
     "gated_hamming_search": dict(
         source="geoflowslam_tpu_torch/kernels/csrc/gated_hamming.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:300"),
+    "lk_level": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/lk_level.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:461"),
 }
 N_FRAMES = 150
 FPS = 30.0
+OF_FPS = 10.0
+LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
+# K3 vs plain on the card. Samples, template and gradients are equal bit for
+# bit (same float32 operations); only the 441- or 961-term sums run in
+# another order, which 10 GN steps amplify on ill-conditioned points, and
+# the ok gate (min-eigenvalue and in-image tests) can flip on its edge. The
+# first run on an H100 read at most 3.8e-6 px and 1.5e-5 in err, with no ok
+# flipped, so the bounds sit 250x and 6x above that.
+LK_TOL_PX = 1e-3     # tracked points where both versions say ok
+LK_TOL_OK = 0.005    # share of points whose ok differs
+LK_TOL_ERR = 1e-4    # mean |residual| where both say ok
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -166,27 +195,87 @@ def phase_hamming(summary):
     summary["gated_hamming_search"]["max_abs_err"] = float(worst)
 
 
-def phase_slice(summary):
+def _lk_inputs(h, w, rs, dev):
+    """Smooth random texture [h, w] with a flat patch, the same texture moved
+    by an integer shift, N points (~5% near or past the border, a few on the
+    flat patch) and guesses up to 3 px off the true motion."""
+    big = rs.rand(h // 8 + 4, w // 8 + 4).astype(np.float32) * 255.0
+    tex = F.interpolate(torch.from_numpy(big)[None, None].to(dev),
+                        size=(h + 32, w + 32), mode="bicubic",
+                        align_corners=False)[0, 0]
+    tex[8:8 + h // 6, 8:8 + w // 6] = 128.0
+    dx, dy = 3, -2
+    prev = tex[8:8 + h, 8:8 + w].contiguous()
+    nxt = tex[8 - dy:8 - dy + h, 8 - dx:8 - dx + w].contiguous()
+    pts = np.stack([rs.rand(LK_N) * (w - 10) + 5,
+                    rs.rand(LK_N) * (h - 10) + 5], 1)
+    nb = LK_N // 20
+    side = rs.randint(0, 2, nb)
+    pts[:nb, 0] = np.where(side == 0, rs.rand(nb) * 16 - 8,
+                           w - 8 + rs.rand(nb) * 16)
+    pts[nb:nb + 20] = rs.rand(20, 2) * [w // 6, h // 6]
+    guess = pts + [dx, dy] + rs.uniform(-3, 3, pts.shape)
+    c = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return prev, nxt, c(pts), c(guess)
+
+
+def phase_lk(summary):
     dev = torch.device("cuda")
-    cfg = SystemConfig()
+    rs = np.random.RandomState(3)
+    worst = 0.0
+    for win in (21, 31):
+        for h, w in ((480, 640), (240, 320), (120, 160), (60, 80)):
+            prev, nxt, pts, guess = _lk_inputs(h, w, rs, dev)
+            args = (prev, nxt, pts, guess, win, 10, 1e-4)
+            gk, okk, ek = kernels.lk_level(*args)
+            gp, okp, ep = KLT._track_level(*args)
+            torch.cuda.synchronize()
+            both = okk & okp
+            dpts = float((gk - gp).abs().max(dim=1).values[both].max())
+            derr = float((ek - ep).abs()[both].max())
+            n_diff = int((okk != okp).sum())
+            ms = cuda_ms(lambda: kernels.lk_level(*args))
+            pms = cuda_ms(lambda: KLT._track_level(*args))
+            print(f"[K3] lk_level {h}x{w} win {win}: {int(both.sum())} of "
+                  f"{LK_N} ok in both, ok differs on {n_diff}, max |dpts| "
+                  f"{dpts:.3e} px, max |derr| {derr:.3e}, kernel {ms:.4f} ms,"
+                  f" plain {pms:.4f} ms")
+            if not (dpts <= LK_TOL_PX and derr <= LK_TOL_ERR
+                    and n_diff <= LK_TOL_OK * LK_N):
+                raise AssertionError(
+                    f"lk_level differs from plain at {h}x{w} win {win}")
+            if int(both.sum()) < LK_N // 2:
+                raise AssertionError(f"lk_level tracked too few points at "
+                                     f"{h}x{w} win {win}")
+            if (h, w, win) == (480, 640, 21):
+                summary["lk_level"].update(ms=ms, plain_ms=pms)
+            worst = max(worst, dpts)
+    summary["lk_level"]["max_abs_err"] = worst
+
+
+def run_path(tag, cfg, fps, summary, expect):
+    """Drive SlamSystem over N_FRAMES frames of the port's synthetic room
+    and hold it to the accuracy gates; the kernels in `expect` must have been
+    launched by this path. Returns the system."""
+    dev = torch.device("cuda")
     cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
                  width=cfg.frame.orb.width, height=cfg.frame.orb.height)
-    seq = SyntheticSequence(SyntheticWorld(cam, device=dev), fps=FPS)
+    seq = SyntheticSequence(SyntheticWorld(cam, device=dev), fps=fps)
     t0 = time.perf_counter()
     frames = []
     for i in range(N_FRAMES):
-        gray, depth, (rot_cw, t_cw) = seq.frame(i / FPS)
+        gray, depth, (rot_cw, t_cw) = seq.frame(i / fps)
         frames.append((gray, depth, rot_cw.cpu().numpy().astype(np.float64),
                        t_cw.cpu().numpy().astype(np.float64)))
     torch.cuda.synchronize()
-    print(f"[slice] rendered {N_FRAMES} frames {cam.width}x{cam.height} "
-          f"in {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] rendered {N_FRAMES} frames {cam.width}x{cam.height} "
+          f"at {fps:g} fps in {time.perf_counter() - t0:.2f} s")
 
     slam = SlamSystem(cfg, device=dev)
     kernels.reset_launch_counts()
     gt, ms_per_frame = [], []
     for i, (gray, depth, rot_cw, t_cw) in enumerate(frames):
-        t = i / FPS
+        t = i / fps
         t1 = time.perf_counter()
         slam.track_rgbd(gray, depth, t)
         torch.cuda.synchronize()
@@ -203,28 +292,53 @@ def phase_slice(summary):
     ate = ate_rmse(traj, gt)
     rp = rpe(traj, gt)
     steady = np.asarray(ms_per_frame[1:])
-    print(f"[slice] state {stats['state']}, {stats['n_kfs']} KFs, "
+    print(f"[{tag}] state {stats['state']}, {stats['n_kfs']} KFs, "
           f"{stats['n_mps']} map points, {len(traj)} poses, "
           f"ATE {ate['ate_rmse'] * 100:.3f} cm, RPE {rp['rpe_trans'] * 100:.3f}"
           f" cm / {rp['rpe_rot_deg']:.4f} deg")
-    print(f"[slice] ms/frame (frames 2..{N_FRAMES}): median "
+    print(f"[{tag}] ms/frame (frames 2..{N_FRAMES}): median "
           f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
           f"first frame {ms_per_frame[0]:.1f} ms")
-    print(f"[slice] kernel launches: {launches}")
+    print(f"[{tag}] kernel launches: {launches}")
     if stats["state"] != "OK":
-        raise AssertionError(f"slice ended in state {stats['state']}")
+        raise AssertionError(f"{tag} ended in state {stats['state']}")
     if stats["n_kfs"] < 3:
-        raise AssertionError(f"slice made only {stats['n_kfs']} keyframes")
+        raise AssertionError(f"{tag} made only {stats['n_kfs']} keyframes")
     if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
         raise AssertionError("non-finite or misshapen poses")
     if not ate["ate_rmse"] < 0.05:
         raise AssertionError(f"ATE {ate['ate_rmse']} m >= 5 cm")
     if not rp["rpe_trans"] < 0.03:
         raise AssertionError(f"RPE {rp['rpe_trans']} m >= 3 cm")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched in the slice")
-        summary[name]["launches"] = count
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in {tag}")
+        summary[name]["launches"] = (summary[name].get("launches", 0)
+                                     + launches[name])
+    return slam
+
+
+def phase_rgbd(summary):
+    run_path("rgbd", SystemConfig(), FPS, summary,
+             ("fast_scores", "gated_hamming_search"))
+
+
+def phase_of_icp(summary):
+    base = SystemConfig()
+    cfg = dataclasses.replace(
+        base, use_of=True, use_icp=True,
+        frame=dataclasses.replace(base.frame, n_of_slots=256))
+    slam = run_path("of_icp", cfg, OF_FPS, summary,
+                    ("fast_scores", "gated_hamming_search", "lk_level"))
+    n3d, n2d = slam.of_appended
+    n_icp = slam.n_icp_accepted
+    print(f"[of_icp] OF appended {n3d} 3D-stream and {n2d} 2D-stream points;"
+          f" ICP accepted on {n_icp} of {N_FRAMES - 1} frames, carried "
+          f"{slam.n_icp_carried}")
+    if n3d + n2d <= 0:
+        raise AssertionError("the optical-flow stage appended no point")
+    if n_icp < 1:
+        raise AssertionError("no ICP prediction was accepted")
 
 
 def main() -> int:
@@ -237,7 +351,9 @@ def main() -> int:
     phase_build()
     phase_fast(summary)
     phase_hamming(summary)
-    phase_slice(summary)
+    phase_lk(summary)
+    phase_rgbd(summary)
+    phase_of_icp(summary)
     print(json.dumps({"kernels": [
         {k: s[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms")}

@@ -8,9 +8,9 @@ __init__ imports jax), so the fields are copied here and a CPU test keeps
 them equal to the originals.
 
 SystemConfig carries every field of the reference, including the sensor
-options this slice does not port yet (IMU, loop closing, OF, ICP, lidar,
-odometry, stereo fisheye, the m12 feed); the port's SlamSystem refuses a
-config that turns any of them on.
+options the port does not have yet (IMU, loop closing, lidar, odometry,
+stereo fisheye, the m12 feed); the port's SlamSystem refuses a config that
+turns any of them on.
 """
 from __future__ import annotations
 

@@ -48,7 +48,9 @@ def frame_data(fd, device) -> FrameData:
         u_right=to_tensor(fd.u_right, device),
         cloud=to_tensor(fd.cloud, device),
         cloud_valid=to_tensor(fd.cloud_valid, device),
-        lk_pyramid=tuple(to_tensor(x, device) for x in fd.lk_pyramid))
+        lk_pyramid=tuple(to_tensor(x, device) for x in fd.lk_pyramid),
+        depth_img=(None if getattr(fd, "depth_img", None) is None
+                   else to_tensor(fd.depth_img, device)))
 
 
 def map_state(ms, device) -> MapState:

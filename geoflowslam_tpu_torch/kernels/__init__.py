@@ -10,8 +10,8 @@ Each launcher takes CUDA tensors only, checks device, dtype, shape and
 contiguity, launches on PyTorch's current stream without synchronising,
 raises if the launch is refused, and adds one to its entry of
 `launch_counts`. Dispatch between a kernel and its plain PyTorch version
-happens in the ops modules (ops/fast.py, ops/matching.py), by the device of
-the input tensor.
+happens in the ops modules (ops/fast.py, ops/matching.py, ops/klt.py), by
+the device of the input tensor.
 """
 from __future__ import annotations
 
@@ -28,13 +28,13 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fast_scores.cu", "gated_hamming.cu")
+SOURCES = ("fast_scores.cu", "gated_hamming.cu", "lk_level.cu")
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")   # used when nvcc is not on PATH
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"fast_scores": 0, "gated_hamming_search": 0}
+launch_counts = {"fast_scores": 0, "gated_hamming_search": 0, "lk_level": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
@@ -98,6 +98,9 @@ def load() -> ctypes.CDLL:
             lib.gfs_fast_scores.restype = i
             lib.gfs_gated_hamming.argtypes = [p] * 9 + [i] * 5 + [p] * 4
             lib.gfs_gated_hamming.restype = i
+            lib.gfs_lk_level.argtypes = [p, p, i, i, p, p, i, i, i, f, p, p,
+                                         p, p]
+            lib.gfs_lk_level.restype = i
             _lib = lib
     return _lib
 
@@ -173,3 +176,44 @@ def gated_hamming_search(q_uv, q_level, q_valid, q_desc, q_radius,
     _raise_on(err, "gated_hamming_search")
     launch_counts["gated_hamming_search"] += 1
     return best, second, idx
+
+
+# dynamic shared memory a block may use on the H100 (one warp's template
+# must fit: (win + 2)^2 float32)
+LK_SMEM_MAX = 232448
+
+
+def lk_level(img_prev: torch.Tensor, img_next: torch.Tensor,
+             pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int,
+             min_eig: float):
+    """One pyramid level of Lucas-Kanade (kernel csrc/lk_level.cu).
+
+    img_prev, img_next: [H, W] f32; pts, guess: [N, 2] f32 (x, y) in level
+    coordinates. Returns (pts_out [N, 2] f32, ok [N] bool, err [N] f32)."""
+    h, w = img_prev.shape
+    n = pts.shape[0]
+    _check("img_prev", img_prev, torch.float32, (h, w))
+    _check("img_next", img_next, torch.float32, (h, w))
+    _check("pts", pts, torch.float32, (n, 2))
+    _check("guess", guess, torch.float32, (n, 2))
+    if win < 1 or iters < 0:
+        raise ValueError(f"lk_level: win {win} and iters {iters} must be "
+                         ">= 1 and >= 0")
+    if (win + 2) ** 2 * 4 > LK_SMEM_MAX:
+        raise ValueError(f"lk_level: win {win} does not fit in shared memory")
+    dev = pts.device
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    ok = torch.empty((n,), dtype=torch.bool, device=dev)
+    err = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out, ok, err
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gfs_lk_level(
+            img_prev.data_ptr(), img_next.data_ptr(), h, w, pts.data_ptr(),
+            guess.data_ptr(), n, int(win), int(iters), float(min_eig),
+            out.data_ptr(), ok.data_ptr(), err.data_ptr(), stream)
+    _raise_on(code, "lk_level")
+    launch_counts["lk_level"] += 1
+    return out, ok, err

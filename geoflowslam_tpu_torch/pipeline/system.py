@@ -2,10 +2,19 @@
 geoflowslam_tpu/pipeline/system.py's RGB-D path).
 
 Per frame, in the caller's thread, on the system's device:
-  motion-model pose prediction -> build_frame -> track_with_motion_model
-  (wide-radius retry from the last pose when it fails) -> track_local_map
-  -> accept or reject (min_inliers_ok) -> NeedNewKeyFrame -> on a keyframe,
-  one local_mapping.mapping_step -> trajectory record (t, T_cr, ref KF).
+  motion-model pose prediction -> build_frame -> [use_icp: GICP/NDT
+  registration against the last frame as the pose predictor] -> [use_of:
+  the dual-stream optical flow fills the frame's OF slots] ->
+  track_with_motion_model (wide-radius retry from the last pose when it
+  fails) -> track_local_map -> accept or reject (min_inliers_ok, OF
+  confirmations discounted) -> NeedNewKeyFrame -> on a keyframe, one
+  local_mapping.mapping_step -> trajectory record (t, T_cr, ref KF).
+The OF and ICP stages follow the reference's fused frame step
+(geoflowslam_tpu/pipeline/fused.py): a registration is accepted only when it
+converged, has enough inliers and moved plausibly (< 0.5 m, < ~20 deg); a
+frame whose visual inliers collapse while the registration held is
+ICP-carried: state OK at the registered pose, the motion model learns the
+registered delta, and a keyframe without bindings every 0.5 s.
 The host reads the inlier counts once per stage and the pose once per frame;
 there is no deferred decision ring and no reader thread: a local card needs
 neither. Initialization is StereoInitialization; RECENTLY_LOST -> LOST ->
@@ -23,7 +32,9 @@ import torch
 
 from geoflowslam_tpu_torch.config import SystemConfig
 from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
+from geoflowslam_tpu_torch.pipeline import of_tracking as OF
 from geoflowslam_tpu_torch.pipeline import tracking as T
 from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
@@ -38,9 +49,8 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D slice."""
+    """Raise on options outside the ported RGB-D and OF/ICP paths."""
     off = {"imu": cfg.imu is None, "loop": cfg.loop is None,
-           "use_of": not cfg.use_of, "use_icp": not cfg.use_icp,
            "use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
            "stereo_fisheye": cfg.stereo_fisheye is None,
            "record_reproj_err": not cfg.record_reproj_err,
@@ -66,7 +76,9 @@ class SlamSystem:
         self.device = dev
         self.tcfg = cfg.track_cfg()
         self.mcfg = cfg.map_cfg()
-        self.ms = M.create(cfg.k_max, cfg.frame.orb.n_features, cfg.m_max, dev)
+        self.ms = M.create(cfg.k_max,
+                           cfg.frame.orb.n_features + cfg.frame.n_of_slots,
+                           cfg.m_max, dev)
         self.state = TrackingState.NOT_INITIALIZED
         self.cur_rot = torch.eye(3, device=dev)
         self.cur_t = torch.zeros(3, device=dev)
@@ -93,6 +105,17 @@ class SlamSystem:
         self._kf_gen: dict = {}
         self._gen_counter = 0
         self._culled_rel: dict = {}
+        self._last_kf_time = 0.0
+        # OF/ICP stages: the previous frame (with its filled OF slots), the
+        # RANSAC generator, and device-side counters read only on request
+        self.last_frame: Optional[FrameData] = None
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(0)
+        self._of_last = torch.zeros(2, dtype=torch.long, device=dev)
+        self._of_total = torch.zeros(2, dtype=torch.long, device=dev)
+        self._icp_accepted = torch.zeros((), dtype=torch.long, device=dev)
+        self.n_icp_carried = 0
+        self._carried_streak = 0   # consecutive ICP-carried frames
 
     # -- public API ----------------------------------------------------------
 
@@ -112,7 +135,9 @@ class SlamSystem:
         if self.state == TrackingState.NOT_INITIALIZED:
             self._initialize(frame, timestamp)
         else:
-            self._track_frame(frame, timestamp)
+            frame = self._track_frame(frame, timestamp)
+        if self.cfg.use_of or self.cfg.use_icp:
+            self.last_frame = frame
         self.last_time = timestamp
         self.n_frames += 1
         self.last_levels = frame.feat.level
@@ -125,6 +150,23 @@ class SlamSystem:
             "n_maps": int(self.ms.n_maps),
             "state": self.state.name,
         }
+
+    @property
+    def debug_of(self):
+        """(n_3d, n_2d) points the optical-flow stage appended to the last
+        frame."""
+        return tuple(int(x) for x in self._of_last.cpu())
+
+    @property
+    def of_appended(self):
+        """(n_3d, n_2d) optical-flow points appended since the system
+        started."""
+        return tuple(int(x) for x in self._of_total.cpu())
+
+    @property
+    def n_icp_accepted(self) -> int:
+        """Frames whose ICP registration passed the predictor's gates."""
+        return int(self._icp_accepted)
 
     def current_pose_wc(self) -> np.ndarray:
         """Twc 4x4 (camera-to-world), float64."""
@@ -214,20 +256,36 @@ class SlamSystem:
         self.ref_kf = slot
         self.ref_kf_inliers = n
         self.frames_since_kf = 0
+        self._last_kf_time = timestamp
         self.state = TrackingState.OK
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
 
-    def _track_frame(self, frame: FrameData, timestamp: float):
-        min_ok = self.cfg.min_inliers_ok
+    def _track_frame(self, frame: FrameData, timestamp: float) -> FrameData:
+        """Track one frame after initialization; returns the frame with its
+        OF slots filled (the next frame's optical-flow source)."""
+        cfg = self.cfg
+        min_ok = cfg.min_inliers_ok
         last_rot, last_t = self.cur_rot, self.cur_t
         if self.has_vel:
             pr, pt = lie.se3_compose(self.vel[0], self.vel[1], last_rot,
                                      last_t)
         else:
             pr, pt = last_rot, last_t
+        icp_ok = None
+        if cfg.use_icp and self.last_frame is not None:
+            pr, pt, icp_ok = self._icp_predict(frame, pr, pt)
+        extra_obs = of_innov = None
+        if (cfg.use_of and self.last_frame is not None
+                and cfg.frame.n_of_slots > 0):
+            frame, extra_obs, n3d, n2d, of_innov = OF.of_dual_stream(
+                self.ms, self.last_frame, frame, self.last_obs_mp, pr, pt,
+                self._gen, self.tcfg, OF.OFConfig(), cfg.frame.n_of_slots)
+            self._of_last = torch.stack([n3d, n2d])
+            self._of_total = self._of_total + self._of_last
         res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
-                                        pt, self.tcfg, self.last_levels)
+                                        pt, self.tcfg, self.last_levels,
+                                        extra_obs=extra_obs)
         n1 = int(res.n_inliers)
         if n1 < min_ok:
             # search wider from the unpredicted pose
@@ -236,7 +294,7 @@ class SlamSystem:
                                             last_rot, last_t, wide,
                                             self.last_levels)
             n1 = int(res.n_inliers)
-        ms2, res2, n2 = self.ms, res, n1
+        ms2, res2 = self.ms, res
         if n1 >= min_ok:
             if self.local_masks is None:
                 self.local_masks = M.local_window(
@@ -244,7 +302,13 @@ class SlamSystem:
                     self.tcfg.lm_max_candidates)
             ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
                                           res.t, self.tcfg, self.local_masks)
-            n2 = int(res2.n_inliers)
+        n2 = res2.n_inliers
+        if of_innov is not None:
+            # health count: OF-slot inliers whose track never left its
+            # predicted start (< 1 px) confirm any prediction on degenerate
+            # texture; they feed the pose solve but not the health gate
+            n2 = n2 - torch.sum((of_innov < 1.0) & (res2.obs_mp >= 0))
+        n2 = int(n2)
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
@@ -252,20 +316,28 @@ class SlamSystem:
         if n2 >= min_ok:
             self.state = TrackingState.OK
             self.lost_since = None
+            self._carried_streak = 0
             self.ms = ms2
-            self.cur_rot, self.cur_t = res2.rot, res2.t
+            self._set_pose(res2.rot, res2.t, last_rot, last_t)
             self.last_obs_mp = res2.obs_mp
-            # motion model Tcl = Tcw Tlw^-1, translation clamped to 0.5 m
-            lri, lti = lie.se3_inverse(last_rot, last_t)
-            vr, vt = lie.se3_compose(self.cur_rot, self.cur_t, lri, lti)
-            vt = vt * torch.clamp(0.5 / torch.clamp_min(
-                torch.linalg.norm(vt), 1e-9), max=1.0)
-            self.vel = (vr, vt)
-            self.has_vel = True
             self.frames_since_kf += 1
             if self._need_new_keyframe(n2):
                 self._insert_keyframe(frame, timestamp, res2, n2)
-            return
+            return frame
+        if icp_ok is not None and bool(icp_ok):
+            # ICP-carried: the registered pose is the track; the map and
+            # the visual bindings stay as they were
+            self.state = TrackingState.OK
+            self.lost_since = None
+            self._carried_streak += 1
+            self.n_icp_carried += 1
+            self.frames_since_kf += 1
+            self._set_pose(pr, pt, last_rot, last_t)
+            if timestamp - self._last_kf_time >= 0.5:
+                no_obs = torch.full_like(res.obs_mp, M.NO_MP)
+                self._insert_keyframe(frame, timestamp,
+                                      T.TrackResult(pr, pt, no_obs, 0), 0)
+            return frame
         self.n_lost += 1
         self.has_vel = False
         if self.state == TrackingState.OK:
@@ -275,6 +347,44 @@ class SlamSystem:
                 and timestamp - self.lost_since > self.cfg.time_recently_lost):
             self.state = TrackingState.LOST
             self._reset_or_new_map()
+        return frame
+
+    def _set_pose(self, rot, t, last_rot, last_t):
+        """Adopt Tcw and learn the motion model Tcl = Tcw Tlw^-1, its
+        translation clamped to 0.5 m."""
+        self.cur_rot, self.cur_t = rot, t
+        lri, lti = lie.se3_inverse(last_rot, last_t)
+        vr, vt = lie.se3_compose(rot, t, lri, lti)
+        vt = vt * torch.clamp(0.5 / torch.clamp_min(
+            torch.linalg.norm(vt), 1e-9), max=1.0)
+        self.vel = (vr, vt)
+        self.has_vel = True
+
+    def _icp_predict(self, frame: FrameData, pred_rot, pred_t):
+        """GICP/NDT registration of the frame's depth cloud against the last
+        frame's as the pose predictor (PredictStateICP). Accepted when it
+        converged, has icp_min_inliers inliers and a plausible motion;
+        returns (Tcw prediction, accepted flag), both on the device."""
+        lf = self.last_frame
+        # init: T_lc = T_lw T_cw_pred^-1
+        pri, pti = lie.se3_inverse(pred_rot, pred_t)
+        r0, t0 = lie.se3_compose(self.cur_rot, self.cur_t, pri, pti)
+        register = (G.ndt_register if self.cfg.icp_method == "ndt"
+                    else G.gicp_register)
+        reg = register(frame.cloud, frame.cloud_valid, lf.cloud,
+                       lf.cloud_valid, init_rot=r0, init_t=t0)
+        # plausibility: a degenerate (planar) cloud "converges" onto any
+        # in-plane init; no camera here moves 0.5 m or ~20 deg per frame
+        dr_cos = 0.5 * (torch.trace(reg.rot) - 1.0)
+        plaus = (torch.linalg.norm(reg.t) < 0.5) & (dr_cos > 0.94)
+        ok = (reg.converged & (reg.n_inliers >= self.cfg.icp_min_inliers)
+              & plaus)
+        self._icp_accepted = self._icp_accepted + ok
+        # T_cw = T_lc^-1 T_lw
+        rri, rti = lie.se3_inverse(reg.rot, reg.t)
+        r_icp, t_icp = lie.se3_compose(rri, rti, self.cur_rot, self.cur_t)
+        return (torch.where(ok, r_icp, pred_rot),
+                torch.where(ok, t_icp, pred_t), ok)
 
     def _need_new_keyframe(self, n_inliers: int) -> bool:
         """NeedNewKeyFrame essentials (no IMU cadence)."""
@@ -309,6 +419,7 @@ class SlamSystem:
         self.ref_kf = slot
         self.ref_kf_inliers = n_inliers
         self.frames_since_kf = 0
+        self._last_kf_time = timestamp
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
 

@@ -109,10 +109,15 @@ def pose_opt_from_obs(ms: M.MapState, frame: FrameData, obs_mp, rot0, t0,
 def track_with_motion_model(ms: M.MapState, frame: FrameData,
                             last_obs_mp: torch.Tensor, pred_rot, pred_t,
                             cfg: TrackConfig,
-                            last_levels: torch.Tensor) -> TrackResult:
+                            last_levels: torch.Tensor,
+                            extra_obs: torch.Tensor | None = None
+                            ) -> TrackResult:
     """Project the last frame's map points at the predicted pose and match
     them with radius th * scale^octave and the octave window [oct-1, oct+1]
-    of the last frame's keypoints, then pose-only GN."""
+    of the last frame's keypoints, then pose-only GN. `extra_obs` [N] holds
+    map-point ids bound beforehand (the optical-flow appends,
+    pipeline/of_tracking.py); they fill the keypoints the search left
+    unmatched."""
     feat = frame.feat
     mp_idx = torch.clamp_min(last_obs_mp, 0).long()
     mp_ok = (last_obs_mp >= 0) & ms.mp_valid[mp_idx]
@@ -126,6 +131,8 @@ def track_with_motion_model(ms: M.MapState, frame: FrameData,
                        device=feat.uv.device)
     obs_mp = scatter_set(empty, torch.where(m_idx >= 0, m_idx, -1),
                          mp_idx.to(torch.int32))
+    if extra_obs is not None:
+        obs_mp = torch.where(obs_mp == M.NO_MP, extra_obs, obs_mp)
     rot, t, obs_mp, n_inl = pose_opt_from_obs(ms, frame, obs_mp, pred_rot,
                                               pred_t, cfg)
     return TrackResult(rot, t, obs_mp, n_inl)

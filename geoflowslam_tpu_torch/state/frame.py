@@ -3,11 +3,14 @@ the RGB-D branch of geoflowslam_tpu/state/frame.py::build_frame, raw feed).
 
 CLAHE, ORB extraction, depth association (virtual right-camera u from bf),
 the voxel-downsampled depth cloud and the LK pyramid, as one FrameData of
-fixed shapes on the input's device.
+fixed shapes on the input's device. With `n_of_slots` > 0 the feature set
+ends in that many empty slots for the optical-flow stage to fill
+(Frame::AddPts analogue), and the metric depth image is kept so that the
+stage can give the appended points depth.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,13 +28,13 @@ class FrameData(NamedTuple):
     cloud: torch.Tensor         # [P, 3] voxel-downsampled depth cloud (cam)
     cloud_valid: torch.Tensor   # [P]
     lk_pyramid: Tuple[torch.Tensor, ...]  # LK pyramid of the (CLAHE) gray
+    # metric depth image [H, W], kept only when OF slots are reserved
+    depth_img: Optional[torch.Tensor] = None
 
 
 def check_supported(cfg: FrameConfig) -> None:
-    """Raise on frame options outside the ported RGB-D slice."""
+    """Raise on frame options the port does not have yet."""
     unsupported = []
-    if cfg.n_of_slots:
-        unsupported.append("n_of_slots (optical-flow slots)")
     if cfg.camera_model != "pinhole" or cfg.dist_params:
         unsupported.append("distortion / non-pinhole camera")
     if cfg.lidar_features:
@@ -64,6 +67,19 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: FrameConfig,
         stride=cfg.cloud_stride, max_depth=cfg.max_depth)
     cloud, cloud_valid = pc.voxel_downsample(
         raw_pts, raw_mask, cfg.cloud_voxel, cfg.cloud_max_pts)
+    depth_img = None
+    if cfg.n_of_slots > 0:
+        k = cfg.n_of_slots
+
+        def pad(x, value=0):
+            return torch.cat([x, x.new_full((k,) + tuple(x.shape[1:]),
+                                            value)])
+
+        feat = FeatureSet(*(pad(x) for x in feat))
+        # OF slots start without depth; the OF stage samples depth_img
+        d, ur = pad(d, -1.0), pad(ur, -1.0)
+        depth_img = depth * cfg.depth_map_factor
     pyr = tuple(klt_ops.build_lk_pyramid(img, cfg.lk_levels))
     return FrameData(feat=feat, depth_kp=d, u_right=ur, cloud=cloud,
-                     cloud_valid=cloud_valid, lk_pyramid=pyr)
+                     cloud_valid=cloud_valid, lk_pyramid=pyr,
+                     depth_img=depth_img)

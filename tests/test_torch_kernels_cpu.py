@@ -13,6 +13,7 @@ import torch
 from geoflowslam_tpu_torch import config as C
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.ops import fast as F
+from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 
@@ -26,6 +27,7 @@ def _forbid_kernels(monkeypatch):
         raise AssertionError("a kernel launcher was called for CPU tensors")
     monkeypatch.setattr(kernels, "fast_scores", boom)
     monkeypatch.setattr(kernels, "gated_hamming_search", boom)
+    monkeypatch.setattr(kernels, "lk_level", boom)
     monkeypatch.setattr(kernels, "load", boom)
 
 
@@ -51,8 +53,14 @@ def test_cpu_tensors_dispatch_to_plain(monkeypatch):
     want = MA.gated_hamming_plain(*args, -1, 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    pts = torch.from_numpy((rs.rand(30, 2) * 60).astype(np.float32))
+    got = KLT.track_level(img, img, pts, pts + 0.5, 21, 5, 1e-4)
+    want = KLT._track_level(img, img, pts, pts + 0.5, 21, 5, 1e-4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
     assert kernels.launch_counts == {"fast_scores": 0,
-                                     "gated_hamming_search": 0}
+                                     "gated_hamming_search": 0,
+                                     "lk_level": 0}
 
 
 def test_launchers_reject_cpu_tensors():
@@ -64,6 +72,9 @@ def test_launchers_reject_cpu_tensors():
             z2, zi, zi.bool(), torch.zeros(4, 8, dtype=torch.int32),
             torch.zeros(4), z2, zi, zi.bool(),
             torch.zeros(4, 8, dtype=torch.int32), -1, 1, MA.BIG)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lk_level(torch.zeros(8, 8), torch.zeros(8, 8), z2, z2, 21, 10,
+                         1e-4)
 
 
 def test_cuda_system_without_cuda_raises(monkeypatch):
@@ -75,8 +86,9 @@ def test_cuda_system_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        SlamSystem(C.SystemConfig(use_of=True, k_max=4, m_max=64), "cpu")
+    for kw in (dict(use_lidar=True), dict(imu=object())):
+        with pytest.raises(NotImplementedError):
+            SlamSystem(C.SystemConfig(k_max=4, m_max=64, **kw), "cpu")
 
 
 def test_sources_and_build_dir():

@@ -10,6 +10,7 @@ import torch
 
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.ops import fast as F
+from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
 
@@ -51,3 +52,50 @@ def test_gated_hamming_kernel_exact(cuda, n, m):
     want = MA.gated_hamming_plain(*args, -1, 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _lk_case(cuda, h, w, n, seed):
+    """Smooth random texture, the same moved by (3, -2) px, n points (some
+    past the border) and guesses up to 3 px off."""
+    rs = np.random.RandomState(seed)
+    big = rs.rand(h // 8 + 4, w // 8 + 4).astype(np.float32) * 255
+    tex = torch.nn.functional.interpolate(
+        torch.from_numpy(big)[None, None].to(cuda), size=(h + 16, w + 16),
+        mode="bicubic", align_corners=False)[0, 0]
+    prev = tex[8:8 + h, 8:8 + w].contiguous()
+    nxt = tex[10:10 + h, 5:5 + w].contiguous()
+    pts = np.stack([rs.rand(n) * (w + 16) - 8, rs.rand(n) * (h + 16) - 8], 1)
+    guess = pts + [3, -2] + rs.uniform(-3, 3, pts.shape)
+    c = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    return prev, nxt, c(pts), c(guess)
+
+
+@pytest.mark.parametrize("h,w,win", [(480, 640, 21), (60, 80, 31),
+                                     (7, 9, 21), (120, 160, 4)])
+def test_lk_level_kernel_matches_plain(cuda, h, w, win):
+    """Where both say ok, tracked points within 1e-3 px and err within 1e-4
+    (equal samples, sums in another order); ok equal on >= 99.5%."""
+    args = _lk_case(cuda, h, w, 1256, seed=h + win) + (win, 10, 1e-4)
+    gk, okk, ek = kernels.lk_level(*args)
+    gp, okp, ep = KLT._track_level(*args)
+    both = okk & okp
+    assert int((okk != okp).sum()) <= 0.005 * len(okk)
+    if both.any():
+        assert float((gk - gp).abs()[both].max()) <= 1e-3
+        assert float((ek - ep).abs()[both].max()) <= 1e-4
+    assert torch.isfinite(gk).all()
+
+
+def test_klt_track_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
+    """A CUDA request never reaches the plain version: with the launcher
+    made to raise, klt_track raises."""
+    prev, nxt, pts, _ = _lk_case(cuda, 120, 160, 64, seed=0)
+    kernels.reset_launch_counts()
+    KLT.klt_track([prev], [nxt], pts)
+    assert kernels.launch_counts["lk_level"] == 1
+
+    def boom(*a, **k):
+        raise RuntimeError("lk_level launcher reached")
+    monkeypatch.setattr(kernels, "lk_level", boom)
+    with pytest.raises(RuntimeError, match="launcher reached"):
+        KLT.klt_track([prev], [nxt], pts)
