@@ -4,35 +4,55 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+A phase runs alone through the module, after the build, for example
+
+    python3 -c "import chip_smoke as c; c.phase_build(); \
+        c.phase_reloc(c.new_summary(), c._vocabulary())"
+
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: the card's name, and its name and power limit as nvidia-smi
      reports them;
   2. build: compile the hand-written kernels (kernels/csrc/*.cu) with nvcc;
-  3. K1 fast_scores vs its plain PyTorch version on random images at every
-     level shape of the 480x640, 8-level, x1.2 pyramid, thresholds 7 and 20:
-     both maps torch.equal; kernel and plain times (CUDA events, median);
-  4. K2 gated_hamming_search vs its plain version at (N, M) = (1000, 1000)
-     and (2048, 1000), radius 7.5, octave window [-1, 1], ~10% invalid rows,
-     half the targets copying a query descriptor: best, second and idx
-     equal; kernel and plain times;
-  5. K3 lk_level vs its plain version (ops/klt._track_level) on smooth
+  3. fast: K1 fast_scores vs its plain PyTorch version on random images at
+     every level shape of the 480x640, 8-level, x1.2 pyramid, thresholds 7
+     and 20: both maps torch.equal; kernel and plain times (CUDA events,
+     median);
+  4. hamming: K2 gated_hamming_search vs its plain version at (N, M) =
+     (1000, 1000) and (2048, 1000), radius 7.5, octave window [-1, 1], ~10%
+     invalid rows, half the targets copying a query descriptor: best, second
+     and idx equal; kernel and plain times;
+  5. hamming_best2: K4 vs its plain version at (N, M) = (1000, 1000),
+     (777, 1013) and (2048, 1000), forward and with the sides swapped (the
+     mutual check), ~25% invalid rows and columns, duplicated descriptors
+     (index ties), and a (64, 300) case with no valid target: best, second
+     and idx torch.equal; kernel and plain times;
+  6. lk: K3 lk_level vs its plain version (ops/klt._track_level) on smooth
      random textures at the four LK level shapes of 480x640, N = 1256
      points (~5% near or past the border, some on a flat patch), guesses
      up to 3 px off, win 21 and 31, 10 iterations: where both say ok the
      tracked points agree within 1e-3 px and err within 1e-4, and ok
      differs on at most 0.5% of the points; kernel and plain times;
-  6. RGB-D path: 150 frames at 30 fps of the synthetic room at 640x480,
-     rendered by the port, through SlamSystem.track_rgbd with the default
+  7. rgbd: 150 frames at 30 fps of the synthetic room at 640x480, rendered
+     by the port, through SlamSystem.track_rgbd with the default
      SystemConfig (1000 features, 8 levels, k_max 256, m_max 65536): state
      OK, >= 3 keyframes, ATE < 5 cm and RPE < 3 cm against ground truth,
      finite poses, and K1 and K2 launched by the path;
-  7. OF/ICP path: the same with use_of, use_icp and n_of_slots = 256, 150
+  8. of_icp: the same with use_of, use_icp and n_of_slots = 256, 150
      frames at 10 fps, a fresh map: the same gates, optical-flow points
      appended, at least one accepted ICP prediction, and K1, K2 and K3
-     launched by the path.
+     launched by the path;
+  9. reloc: relocalization at full width with the shipped vocabulary (see
+     phase_reloc): a relocalization brings the lost system back to OK
+     without a new map, within 10 cm of the first pass, K4 launched; ms per
+     relocalization attempt on the path; then the noisy view relocalized
+     directly as well, within 10 cm of the first pass, and timed;
+ 10. merge: an Atlas break and merge at full width with LoopConfig() and
+     the shipped vocabulary (see phase_merge): OK, a merge or loop, >= 90%
+     of the KFs in the active map, K4 and K2 launched; ms of the
+     loop-correcting KF frame.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON summary of the kernels (launches summed
-over the two paths); the last line is {"ok": true, "device": {...}}.
+over the paths); the last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -49,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from geoflowslam_tpu_torch import kernels
-from geoflowslam_tpu_torch.config import FrameConfig, SystemConfig
+from geoflowslam_tpu_torch.config import LoopConfig, SystemConfig
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
 from geoflowslam_tpu_torch.io.synthetic import (Camera, SyntheticSequence,
                                                 SyntheticWorld)
@@ -57,7 +77,10 @@ from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
+from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+from geoflowslam_tpu_torch.retrieval import vocab as V
+from geoflowslam_tpu_torch.state.frame import build_frame
 
 KERNEL_INFO = {
     "fast_scores": dict(
@@ -69,10 +92,14 @@ KERNEL_INFO = {
     "lk_level": dict(
         source="geoflowslam_tpu_torch/kernels/csrc/lk_level.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:461"),
+    "hamming_best2": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/hamming_best2.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:186"),
 }
 N_FRAMES = 150
 FPS = 30.0
 OF_FPS = 10.0
+RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
 LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 # K3 vs plain on the card. Samples, template and gradients are equal bit for
 # bit (same float32 operations); only the 441- or 961-term sums run in
@@ -195,6 +222,53 @@ def phase_hamming(summary):
     summary["gated_hamming_search"]["max_abs_err"] = float(worst)
 
 
+def _k4_inputs(n, m, seed, dev):
+    """Random 256-bit descriptors with ~25% invalid rows and columns, a
+    quarter of the queries copied from targets and duplicated targets (index
+    ties on best and second)."""
+    rs = np.random.RandomState(seed)
+    dq = rs.randint(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    dt = rs.randint(0, 2 ** 32, (m, 8), dtype=np.uint64).astype(np.uint32)
+    k = min(n, m) // 4
+    dq[:k] = dt[rs.randint(0, m, k)]
+    dt[m // 2:m // 2 + m // 8] = dt[:m // 8]
+    vq = rs.rand(n) > 0.25
+    vt = rs.rand(m) > 0.25
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (c(dq.view(np.int32)), c(vq), c(dt.view(np.int32)), c(vt))
+
+
+def phase_hamming_best2(summary):
+    """K4 forward and swapped against the plain version, exact."""
+    dev = torch.device("cuda")
+    cases = [(1000, 1000), (777, 1013), (2048, 1000)]
+    for n, m in cases + [(64, 300)]:
+        dq, vq, dt, vt = _k4_inputs(n, m, n + m, dev)
+        if (n, m) == (64, 300):
+            vt = torch.zeros_like(vt)    # no valid target for any row
+        for side, args in (("forward", (dq, vq, dt, vt)),
+                           ("swapped", (dt, vt, dq, vq))):
+            k = kernels.hamming_best2(*args, MA.BIG)
+            p = MA.hamming_best2_plain(*args)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("best", "second", "idx"), k, p):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"hamming_best2 {side} {name} differs from plain at "
+                        f"N={n} M={m} in {int((x != y).sum())} rows")
+        n_tie = int((k[0] == k[1]).sum())
+        print(f"[K4] hamming_best2 N={n} M={m}: forward and swapped equal "
+              f"(rows with best == second: {n_tie})")
+        if (n, m) in cases:
+            ms = cuda_ms(lambda: kernels.hamming_best2(dq, vq, dt, vt, MA.BIG))
+            pms = cuda_ms(lambda: MA.hamming_best2_plain(dq, vq, dt, vt))
+            print(f"[K4] hamming_best2 N={n} M={m}: kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms")
+            if (n, m) == (1000, 1000):
+                summary["hamming_best2"].update(ms=ms, plain_ms=pms)
+    summary["hamming_best2"]["max_abs_err"] = 0.0
+
+
 def _lk_inputs(h, w, rs, dev):
     """Smooth random texture [h, w] with a flat patch, the same texture moved
     by an integer shift, N points (~5% near or past the border, a few on the
@@ -299,7 +373,6 @@ def run_path(tag, cfg, fps, summary, expect):
     print(f"[{tag}] ms/frame (frames 2..{N_FRAMES}): median "
           f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
           f"first frame {ms_per_frame[0]:.1f} ms")
-    print(f"[{tag}] kernel launches: {launches}")
     if stats["state"] != "OK":
         raise AssertionError(f"{tag} ended in state {stats['state']}")
     if stats["n_kfs"] < 3:
@@ -310,11 +383,7 @@ def run_path(tag, cfg, fps, summary, expect):
         raise AssertionError(f"ATE {ate['ate_rmse']} m >= 5 cm")
     if not rp["rpe_trans"] < 0.03:
         raise AssertionError(f"RPE {rp['rpe_trans']} m >= 3 cm")
-    for name in expect:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched in {tag}")
-        summary[name]["launches"] = (summary[name].get("launches", 0)
-                                     + launches[name])
+    _count(summary, tag, launches, expect)
     return slam
 
 
@@ -341,22 +410,243 @@ def phase_of_icp(summary):
         raise AssertionError("no ICP prediction was accepted")
 
 
+def _room(cfg, fps):
+    cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+                 width=cfg.frame.orb.width, height=cfg.frame.orb.height)
+    return SyntheticSequence(SyntheticWorld(cam, device="cuda"), fps=fps)
+
+
+def _vocabulary():
+    """The shipped vocabulary (k = 10, 4 levels), read as data from
+    geoflowslam_tpu/assets/vocab_default.npz."""
+    t0 = time.perf_counter()
+    voc = V.default_vocabulary("cuda")
+    print(f"[vocab] shipped vocabulary, k {voc.k}, {voc.levels} levels, "
+          f"{voc.n_words} words, loaded in {time.perf_counter() - t0:.2f} s")
+    return voc
+
+
+def _blank(cfg):
+    h, w = cfg.frame.orb.height, cfg.frame.orb.width
+    return (torch.full((h, w), 100.0, device="cuda"),
+            torch.full((h, w), 2.0, device="cuda"))
+
+
+def _timed(slam, attr, log):
+    """Wrap slam.<attr> to append its synchronised wall time (ms) to log."""
+    fn = getattr(slam, attr)
+
+    def wrapped(*a, **k):
+        t1 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t1) * 1000.0)
+        return out
+    setattr(slam, attr, wrapped)
+
+
+def _count(summary, tag, launches, expect):
+    print(f"[{tag}] kernel launches: {launches}")
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in {tag}")
+    for name, n in launches.items():
+        summary[name]["launches"] = summary[name].get("launches", 0) + n
+
+
+def _tilted(seq, t, pitch):
+    """(gray, depth) of the camera at the trajectory's view at time t,
+    tilted down by `pitch` about the world's x axis (the floor is at +y)."""
+    rot_cw, t_cw = seq.pose_cw(t)
+    c, s = float(np.cos(pitch)), float(np.sin(pitch))
+    rx = torch.tensor([[1.0, 0.0, 0.0], [0.0, c, s], [0.0, -s, c]],
+                      device=rot_cw.device)
+    pos = -rot_cw.T @ t_cw
+    rot2 = (rx @ rot_cw.T).T
+    return seq.world.render(rot2, -rot2 @ pos)
+
+
+def phase_reloc(summary, voc):
+    """Relocalization at full width, staged like
+    tests/test_reloc_observability.py and tests/test_torch_slice_reloc.py: a
+    first pass of 2 s at 10 fps, a tilt in place down to the floor (90
+    degrees over 16 frames, so that the last reference KF shares no view
+    with the start), blank frames until RECENTLY_LOST, a noisy revisit of
+    the view at 0.4 s for up to 3 frames, then 3 clean frames. Neither the
+    motion model nor TrackReferenceKeyFrame can recover the revisit. Gates:
+    a relocalization through SlamSystem, state OK with no new map, the pose
+    within 10 cm of the first pass's at that view, and K4 launched. The
+    relocalization attempts on the revisit frames are timed."""
+    cfg = dataclasses.replace(SystemConfig(), time_recently_lost=30.0,
+                              min_kfs_for_new_map=99)
+    seq = _room(cfg, RECOVER_FPS)
+    slam = SlamSystem(cfg, device="cuda", vocab=voc)
+    kernels.reset_launch_counts()
+    first = {}
+    for i in range(20):
+        g, d, _ = seq.frame(i / RECOVER_FPS)
+        first[i] = slam.track_rgbd(g, d, i / RECOVER_FPS)
+    t = 2.0
+    for k in range(1, 17):
+        g, d = _tilted(seq, 1.9, np.pi / 2 * (1 - np.cos(np.pi * k / 16)) / 2)
+        slam.track_rgbd(g, d, t)
+        t += 0.1
+    st = slam.map_stats()
+    print(f"[reloc] first pass and tilt: {st}")
+    if st["state"] != "OK":
+        raise AssertionError(f"reloc first pass ended {st['state']}")
+    blank, bdepth = _blank(cfg)
+    for _ in range(6):
+        slam.track_rgbd(blank, bdepth, t)
+        t += 0.1
+        if slam.state.name == "RECENTLY_LOST":
+            break
+    if slam.state.name != "RECENTLY_LOST":
+        raise AssertionError(f"blank frames left state {slam.state.name}")
+    g, d, _ = seq.frame(0.4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    noisy = torch.clamp(g + 6.0 * torch.randn(g.shape, device="cuda",
+                                              generator=gen), 0, 255)
+    attempts = []
+    _timed(slam, "_relocalize", attempts)
+    n_noisy = 0
+    t += 1.0
+    while n_noisy < 3 and slam.state.name != "OK":
+        slam.track_rgbd(noisy, d, t)
+        t += 0.1
+        n_noisy += 1
+    st = slam.map_stats()
+    print(f"[reloc] after {n_noisy} noisy frames: {st}, "
+          f"{slam.n_reloc} relocalization(s), tracking inliers "
+          f"{slam.inlier_log[-1][1:]}")
+    if st["state"] != "OK" or st["n_maps"] != 1 or slam.n_reloc < 1:
+        raise AssertionError(f"relocalization failed: {st}, "
+                             f"{slam.n_reloc} relocalizations")
+    for i in (5, 6, 7):
+        g, d, _ = seq.frame(i / RECOVER_FPS)
+        pose = slam.track_rgbd(g, d, t + 0.5 + i / RECOVER_FPS)
+    launches = dict(kernels.launch_counts)
+    err = float(np.linalg.norm(pose[:3, 3] - first[7][:3, 3]))
+    st = slam.map_stats()
+    print(f"[reloc] after 3 clean frames: {st}, {err * 100:.3f} cm from the "
+          f"first pass at that view")
+    print(f"[reloc] ms per reloc attempt on the revisit frames: "
+          f"{[round(x, 2) for x in attempts]}")
+    if st["state"] != "OK" or st["n_maps"] != 1 or not err < 0.1:
+        raise AssertionError(f"reloc end state {st}, error {err} m")
+    _count(summary, "reloc", launches, ("hamming_best2",))
+    # the same relocalization called directly on the lost system's map (after
+    # the path's counts were read): the first pass's pose at that view,
+    # timed over 5 attempts after one warm-up
+    frame = build_frame(noisy, d, cfg.frame, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_inl, rot, tv, _, cand = R.reloc_core(
+            voc, slam.reloc_db, slam.ms, frame, slam._reloc_gen, slam.tcfg,
+            cfg.frame.orb.width, cfg.frame.orb.height)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1000.0)
+    pos = -(rot.T @ tv).cpu().numpy()
+    err = float(np.linalg.norm(pos - first[4][:3, 3]))
+    print(f"[reloc] direct relocalization of the noisy view: {int(n_inl)} "
+          f"inliers via KF {int(cand)}, {err * 100:.3f} cm from the first "
+          f"pass; ms per attempt {[round(x, 2) for x in times]}, median of "
+          f"the last 5 {np.median(times[1:]):.2f}")
+    if int(n_inl) < cfg.min_inliers_ok or not err < 0.1:
+        raise AssertionError(f"direct relocalization: {int(n_inl)} inliers, "
+                             f"error {err} m")
+
+
+def phase_merge(summary, voc):
+    """Atlas break and merge at full width (tests/test_e2e_loop.py's
+    staging) with LoopConfig(): phase A until >= 6 KFs, blank frames until a
+    second map starts, then a revisit of phase A's views. Gates: state OK,
+    a loop or a merge, >= 90% of the valid KFs in the active map, and K4 and
+    K2 launched."""
+    cfg = dataclasses.replace(SystemConfig(), time_recently_lost=0.25,
+                              min_kfs_for_new_map=6, loop=LoopConfig())
+    seq = _room(cfg, RECOVER_FPS)
+    slam = SlamSystem(cfg, device="cuda", vocab=voc)
+    kernels.reset_launch_counts()
+    n_a = 0
+    while n_a < 22 or (slam.map_stats()["n_kfs"] < 6 and n_a < 60):
+        g, d, _ = seq.frame(n_a / RECOVER_FPS)
+        slam.track_rgbd(g, d, n_a / RECOVER_FPS)
+        n_a += 1
+    st = slam.map_stats()
+    print(f"[merge] phase A, {n_a} frames: {st}")
+    if st["n_kfs"] < 6 or st["state"] != "OK":
+        raise AssertionError(f"merge phase A: {st}")
+    blank, bdepth = _blank(cfg)
+    t = n_a / RECOVER_FPS
+    for _ in range(10):
+        slam.track_rgbd(blank, bdepth, t)
+        t += 0.1
+        if slam.map_stats()["n_maps"] >= 2:
+            break
+    st = slam.map_stats()
+    print(f"[merge] after blank frames: {st}")
+    if st["n_maps"] < 2:
+        raise AssertionError("no second Atlas map")
+    lc = slam.loop_closer
+    frame_ms, events = [], []
+    t += 1.0
+    for i in range(n_a):
+        g, d, _ = seq.frame(i / RECOVER_FPS)
+        before = lc.n_loops + lc.n_merges
+        t1 = time.perf_counter()
+        slam.track_rgbd(g, d, t + i / RECOVER_FPS)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1000.0)
+        if lc.n_loops + lc.n_merges > before:
+            events.append((i, frame_ms[-1]))
+        if events and i >= events[0][0] + 6:
+            break
+    launches = dict(kernels.launch_counts)
+    st = slam.map_stats()
+    valid = slam.ms.kf_valid.cpu().numpy()
+    share = float((slam.ms.kf_map_id.cpu().numpy()[valid]
+                   == int(slam.ms.active_map)).mean())
+    print(f"[merge] revisit, {len(frame_ms)} frames: {st}, loops "
+          f"{lc.n_loops}, merges {lc.n_merges}, {share * 100:.1f}% of the "
+          f"valid KFs in the active map")
+    print(f"[merge] ms of the loop-correcting KF frame(s): "
+          f"{[(i, round(ms, 2)) for i, ms in events]}; median frame "
+          f"{np.median(frame_ms):.2f} ms")
+    if st["state"] != "OK" or not events or not share >= 0.9:
+        raise AssertionError(f"merge failed: {st}, {len(events)} "
+                             f"loop/merge events, KF share {share}")
+    _count(summary, "merge", launches, ("hamming_best2",
+                                        "gated_hamming_search"))
+
+
+def new_summary():
+    return {k: dict(name=k, route="cuda", **v)
+            for k, v in KERNEL_INFO.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name = phase_device()
-    summary = {k: dict(name=k, route="cuda", **v)
-               for k, v in KERNEL_INFO.items()}
+    summary = new_summary()
     phase_build()
     phase_fast(summary)
     phase_hamming(summary)
+    phase_hamming_best2(summary)
     phase_lk(summary)
     phase_rgbd(summary)
     phase_of_icp(summary)
+    voc = _vocabulary()
+    phase_reloc(summary, voc)
+    phase_merge(summary, voc)
     print(json.dumps({"kernels": [
-        {k: s[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
+        {k: s[k] for k in ("name", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms")}
         for s in summary.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,15 +2,15 @@
 
 Frozen copies of the JAX package's OrbConfig (ops/extractor.py), FrameConfig
 (state/frame.py), TrackConfig (pipeline/tracking.py), MappingConfig
-(pipeline/local_mapping.py) and SystemConfig (pipeline/system.py), with the
-same fields and defaults. The port cannot import the JAX package (its
-__init__ imports jax), so the fields are copied here and a CPU test keeps
-them equal to the originals.
+(pipeline/local_mapping.py), LoopConfig (pipeline/loop_closing.py) and
+SystemConfig (pipeline/system.py), with the same fields and defaults. The
+port cannot import the JAX package (its __init__ imports jax), so the
+fields are copied here and a CPU test keeps them equal to the originals.
 
 SystemConfig carries every field of the reference, including the sensor
-options the port does not have yet (IMU, loop closing, lidar, odometry,
-stereo fisheye, the m12 feed); the port's SlamSystem refuses a config that
-turns any of them on.
+options the port does not have yet (IMU, lidar, odometry, stereo fisheye,
+the m12 feed); the port's SlamSystem refuses a config that turns any of
+them on. `loop` takes this module's LoopConfig.
 """
 from __future__ import annotations
 
@@ -100,6 +100,29 @@ class MappingConfig:
     ba_max_pts: int = 1024   # landmark slots in the BA problem
     cull_found_ratio: float = 0.25
     cull_min_obs: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopConfig:
+    min_score: float = 0.05
+    min_sim3_inliers: int = 20
+    fix_scale: bool = True         # stereo/RGBD; mono optimizes scale
+    covis_edge_min: int = 30       # essential-graph edge threshold
+    max_edges: int = 512
+    run_pose_graph: bool = True
+    run_global_ba: bool = False    # synchronous GBA right after correction
+    async_global_ba: bool = True   # GBA as per-frame micro-steps
+    use_icp_loop: bool = False     # UseICPLoop: GICP-refine the loop Sim3
+    consistency_needed: int = 3    # consecutive KFs re-detecting a region
+    min_proj_verify: int = 25      # guided-projection matches through Sim3
+    run_weld: bool = True          # SearchAndFuse + welding local BA
+    # drift budget of a same-map loop: floor + rate * |t_cur - t_cand|
+    drift_budget_floor_m: float = 0.30
+    drift_budget_rate: float = 0.02       # m per second of separation
+    drift_budget_floor_deg: float = 5.0
+    drift_budget_rate_deg: float = 0.10   # deg per second of separation
+    # minimum out-of-plane extent (metres) of the Sim3 inlier consensus
+    min_structure_m: float = 0.05
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
 """Conversion of the JAX package's state into the port's tensors.
 
 The inputs are the reference's NamedTuples (FeatureSet, FrameData,
-MapState, TrackResult) or anything else with the same fields whose leaves
-numpy can read; nothing here imports the JAX package. Descriptor words
-(uint32 in the reference) become int32 tensors holding the same bits.
+MapState, TrackResult, Vocabulary, KFDatabase) or anything else with the
+same fields whose leaves numpy can read; nothing here imports the JAX
+package. Descriptor words (uint32 in the reference) become int32 tensors
+holding the same bits.
 `load_atlas` reads the npz that geoflowslam_tpu/state/serialize.py::
 save_atlas writes, the map a reference run carries across.
 """
@@ -16,6 +17,8 @@ import torch
 
 from geoflowslam_tpu_torch.ops.extractor import FeatureSet
 from geoflowslam_tpu_torch.pipeline.tracking import TrackResult
+from geoflowslam_tpu_torch.retrieval.kf_database import KFDatabase
+from geoflowslam_tpu_torch.retrieval.vocab import Vocabulary
 from geoflowslam_tpu_torch.state.frame import FrameData
 from geoflowslam_tpu_torch.state.map_state import MapState
 
@@ -59,6 +62,17 @@ def map_state(ms, device) -> MapState:
 
 def track_result(tr, device) -> TrackResult:
     return _convert(TrackResult, tr, device)
+
+
+def vocabulary(voc, device) -> Vocabulary:
+    return Vocabulary(centers=tuple(to_tensor(c, device)
+                                    for c in voc.centers),
+                      weights=to_tensor(voc.weights, device),
+                      k=int(voc.k), levels=int(voc.levels))
+
+
+def kf_database(db, device) -> KFDatabase:
+    return _convert(KFDatabase, db, device)
 
 
 def load_atlas(path: str, device):

@@ -28,13 +28,15 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fast_scores.cu", "gated_hamming.cu", "lk_level.cu")
+SOURCES = ("fast_scores.cu", "gated_hamming.cu", "lk_level.cu",
+           "hamming_best2.cu")
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")   # used when nvcc is not on PATH
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"fast_scores": 0, "gated_hamming_search": 0, "lk_level": 0}
+launch_counts = {"fast_scores": 0, "gated_hamming_search": 0, "lk_level": 0,
+                 "hamming_best2": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
@@ -101,6 +103,8 @@ def load() -> ctypes.CDLL:
             lib.gfs_lk_level.argtypes = [p, p, i, i, p, p, i, i, i, f, p, p,
                                          p, p]
             lib.gfs_lk_level.restype = i
+            lib.gfs_hamming_best2.argtypes = [p] * 4 + [i] * 3 + [p] * 4
+            lib.gfs_hamming_best2.restype = i
             _lib = lib
     return _lib
 
@@ -217,3 +221,34 @@ def lk_level(img_prev: torch.Tensor, img_next: torch.Tensor,
     _raise_on(code, "lk_level")
     launch_counts["lk_level"] += 1
     return out, ok, err
+
+
+def hamming_best2(q_desc: torch.Tensor, q_valid: torch.Tensor,
+                  t_desc: torch.Tensor, t_valid: torch.Tensor, big: int):
+    """Ungated best/second Hamming search (kernel csrc/hamming_best2.cu).
+
+    q_desc [N,8] i32 (the 256 descriptor bits), q_valid [N] bool; t_desc
+    [M,8] i32, t_valid [M] bool. A pair with an invalid side reads `big`.
+    Returns (best [N] i32, second [N] i32, idx [N] i32), ties to the lowest
+    target index, (big, big, 0) for a row with no valid pair."""
+    n, m = q_desc.shape[0], t_desc.shape[0]
+    _check("q_desc", q_desc, torch.int32, (n, 8))
+    _check("q_valid", q_valid, torch.bool, (n,))
+    _check("t_desc", t_desc, torch.int32, (m, 8))
+    _check("t_valid", t_valid, torch.bool, (m,))
+    dev = q_desc.device
+    best = torch.empty((n,), dtype=torch.int32, device=dev)
+    second = torch.empty((n,), dtype=torch.int32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return best, second, idx
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gfs_hamming_best2(
+            q_desc.data_ptr(), q_valid.data_ptr(), t_desc.data_ptr(),
+            t_valid.data_ptr(), n, m, int(big), best.data_ptr(),
+            second.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "hamming_best2")
+    launch_counts["hamming_best2"] += 1
+    return best, second, idx

@@ -1,10 +1,11 @@
-"""SO(3)/SE(3) functions of the RGB-D slice (port of
-geoflowslam_tpu/math/lie.py), batched over leading dims.
+"""SO(3)/SE(3)/Sim(3) functions (port of geoflowslam_tpu/math/lie.py),
+batched over leading dims.
 
 Conventions as in the reference: rotations are [..., 3, 3]; quaternions
 are (w, x, y, z); SE(3) is a pair (R [..., 3, 3], t [..., 3]) acting as
-x' = R x + t; twists are [rho (trans), phi (rot)] like Sophus. Every map
-is Taylor-guarded near theta = 0.
+x' = R x + t; Sim(3) a triple (s [...], R, t) acting as x' = s R x + t;
+twists are [rho (trans), phi (rot)] and Sim(3) tangents [rho, phi, sigma]
+like Sophus. Every map is Taylor-guarded near theta = 0 (and sigma = 0).
 """
 from __future__ import annotations
 
@@ -133,6 +134,23 @@ def se3_exp(xi: torch.Tensor):
     return rot, torch.einsum("...ij,...j->...i", v_mat, rho)
 
 
+def se3_log(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> twist [rho, phi]."""
+    phi = so3_log(rot)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    half = 0.5 * theta
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half)
+         / torch.clamp_min(torch.sin(half), _EPS)) / theta2)
+    k = hat(phi)
+    v_inv = _eye_like(k) - 0.5 * k + cot_term[..., None, None] * (k @ k)
+    rho = torch.einsum("...ij,...j->...i", v_inv, t)
+    return torch.cat([rho, phi], dim=-1)
+
+
 def se3_compose(ra, ta, rb, tb):
     """(Ra, ta) * (Rb, tb): apply b first, then a."""
     return ra @ rb, torch.einsum("...ij,...j->...i", ra, tb) + ta
@@ -141,3 +159,60 @@ def se3_compose(ra, ta, rb, tb):
 def se3_inverse(rot, t):
     rinv = rot.transpose(-1, -2)
     return rinv, -torch.einsum("...ij,...j->...i", rinv, t)
+
+
+def sim3_compose(sa, ra, ta, sb, rb, tb):
+    """(sa, Ra, ta) * (sb, Rb, tb): x -> sa Ra (sb Rb x + tb) + ta."""
+    return (sa * sb, ra @ rb,
+            sa[..., None] * torch.einsum("...ij,...j->...i", ra, tb) + ta)
+
+
+def sim3_inverse(s, rot, t):
+    rinv = rot.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sinv, rinv, -sinv[..., None] * torch.einsum("...ij,...j->...i",
+                                                       rinv, t)
+
+
+def sim3_apply(s, rot, t, pts):
+    """[...], [..., 3, 3], [..., 3], [..., N, 3] -> [..., N, 3]."""
+    return (s[..., None, None] * torch.einsum("...ij,...nj->...ni", rot, pts)
+            + t[..., None, :])
+
+
+def sim3_exp(xi: torch.Tensor):
+    """7-vector [rho, phi, sigma] -> (s, R, t), Sophus's Sim3 exp (its W
+    matrix couples the translation to rotation and scale)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    rot = so3_exp(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    k = hat(phi)
+    eye = _eye_like(k)
+    small_sig = torch.abs(sigma) < _EPS
+    small_th = theta2 < _EPS
+    ones = torch.ones_like(sigma)
+    sig_safe = torch.where(small_sig, ones, sigma)
+    th_safe = torch.where(small_th, ones, theta)
+    a_coef = torch.where(small_sig, torch.zeros_like(sigma),
+                         (s - 1.0) / sig_safe)
+    c_coef = torch.where(small_sig, ones, a_coef)
+    denom = sig_safe * sig_safe + theta2
+    sin_t, cos_t = torch.sin(th_safe), torch.cos(th_safe)
+    a_big = torch.where(
+        small_sig, (1.0 - cos_t) / torch.clamp_min(theta2, _EPS),
+        (s * sin_t * sig_safe + (1.0 - s * cos_t) * th_safe)
+        / torch.clamp_min(th_safe * denom, _EPS))
+    b_big = torch.where(
+        small_sig, (th_safe - sin_t) / torch.clamp_min(theta2 * th_safe, _EPS),
+        (c_coef - ((s * cos_t - 1.0) * sig_safe + s * sin_t * th_safe)
+         / torch.clamp_min(denom, _EPS)) / torch.clamp_min(theta2, _EPS))
+    a_small = torch.where(small_sig, 0.5 * ones,
+                          ((sig_safe - 1.0) * s + 1.0)
+                          / torch.clamp_min(sig_safe * sig_safe, _EPS))
+    a_final = torch.where(small_th, a_small, a_big)
+    b_final = torch.where(small_th, torch.zeros_like(sigma), b_big)
+    w_mat = (c_coef[..., None, None] * eye + a_final[..., None, None] * k
+             + b_final[..., None, None] * (k @ k))
+    return s, rot, torch.einsum("...ij,...j->...i", w_mat, rho)

@@ -2,21 +2,31 @@
 
 Descriptors are [N, 8] int32 tensors holding the 256 bits of the reference's
 [N, 8] uint32 words (torch's uint32 supports few ops; the bits are the
-same). `hamming_matrix` is the plain dense version; `search_by_projection`
-dispatches its gated best/second search by device: CUDA tensors go to the
-hand-written kernel (kernels/csrc/gated_hamming.cu), CPU tensors to
-`gated_hamming_plain`, the mask path of the reference's XLA branch
-(spatial_mask, level_mask, match_descriptors(mutual=False)). The ratio and
-max-distance tests stay here around either.
+same). `hamming_matrix` is the plain dense version. Two searches dispatch
+by device, CUDA tensors to a hand-written kernel and CPU tensors to the
+plain version:
+* `search_by_projection`'s gated best/second search: the kernel
+  kernels/csrc/gated_hamming.cu, the plain `gated_hamming_plain` (the mask
+  path of the reference's XLA branch: spatial_mask, level_mask,
+  match_descriptors(mutual=False));
+* `match_descriptors` without a mask, its best/second search and its mutual
+  column argmin: the kernel kernels/csrc/hamming_best2.cu (once each way),
+  the plain `hamming_best2_plain`. With a mask it stays on the plain path
+  on either device: no TPU kernel computes it.
+The ratio, max-distance and mutual tests stay here around either.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.config import TH_HIGH, TH_LOW
+from geoflowslam_tpu_torch.ops.indexing import topk_stable
 
 BIG = 1 << 20   # distance of a pair that no gate lets through
+HISTO_LENGTH = 30
 
 
 def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -47,23 +57,66 @@ def _best_two(dist: torch.Tensor):
     return best, second, bidx
 
 
+def hamming_best2_plain(desc_q, valid_q, desc_t, valid_t):
+    """Plain version of the ungated best-two kernel: (best, second, idx)
+    int32 per query row, a pair with an invalid side at BIG, ties to the
+    lowest index, (BIG, BIG, 0) for a row with no valid pair."""
+    invalid = (~valid_q[:, None]) | (~valid_t[None, :])
+    dist = torch.where(invalid, BIG, hamming_matrix(desc_q, desc_t))
+    best, second, bidx = _best_two(dist)
+    return best.to(torch.int32), second.to(torch.int32), bidx.to(torch.int32)
+
+
+def hamming_best2(desc_q, valid_q, desc_t, valid_t):
+    """Device dispatch of the ungated search: kernel on CUDA, plain on CPU."""
+    if desc_q.is_cuda:
+        return kernels.hamming_best2(
+            desc_q.int().contiguous(), valid_q.bool().contiguous(),
+            desc_t.int().contiguous(), valid_t.bool().contiguous(), BIG)
+    if desc_q.device.type != "cpu":
+        raise ValueError(f"hamming_best2: unsupported device {desc_q.device}")
+    return hamming_best2_plain(desc_q, valid_q, desc_t, valid_t)
+
+
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_dist=TH_LOW,
                       ratio: float = 0.9, mutual: bool = True, mask=None):
     """Nearest-neighbour Hamming match with the ratio test and an optional
-    mutual check. Returns (match_idx [N] into B or -1, match_dist [N])."""
-    dist = hamming_matrix(desc_a, desc_b)
-    invalid = (~valid_a[:, None]) | (~valid_b[None, :])
-    if mask is not None:
-        invalid = invalid | (~mask)
-    dist = torch.where(invalid, BIG, dist)
-    best, second, bidx = _best_two(dist)
+    mutual check (B's best A must be this row). Returns (match_idx [N] into
+    B or -1, match_dist [N])."""
+    n = desc_a.shape[0]
+    rows = torch.arange(n, device=desc_a.device)
+    if mask is None:
+        best, second, bidx = hamming_best2(desc_a, valid_a, desc_b, valid_b)
+        b_best_a = (hamming_best2(desc_b, valid_b, desc_a, valid_a)[2]
+                    if mutual else None)
+    else:
+        invalid = (~valid_a[:, None]) | (~valid_b[None, :]) | (~mask)
+        dist = torch.where(invalid, BIG, hamming_matrix(desc_a, desc_b))
+        best, second, bidx = _best_two(dist)
+        b_best_a = torch.argmin(dist.T, dim=1) if mutual else None
     ok = (best <= max_dist) & (best.float() <= ratio * second.float())
     if mutual:
-        b_best_a = torch.argmin(dist.T, dim=1)
-        ok = ok & (b_best_a[bidx] == torch.arange(desc_a.shape[0],
-                                                  device=dist.device))
+        ok = ok & (b_best_a[bidx.long()] == rows)
     return (torch.where(ok, bidx, -1).to(torch.int32),
             torch.where(ok, best, BIG).to(torch.int32))
+
+
+def rotation_consistency(angles_a, angles_b, match_idx, n_keep: int = 3):
+    """Keep matches whose angle difference falls in the top-`n_keep` bins of
+    a HISTO_LENGTH-bin rotation histogram (ORBmatcher's CheckOrientation)."""
+    valid = match_idx >= 0
+    idx_safe = torch.clamp_min(match_idx, 0).long()
+    rot = torch.remainder(angles_a - angles_b[idx_safe], 2 * math.pi)
+    bins = torch.clamp((rot * (HISTO_LENGTH / (2 * math.pi))).to(torch.int32),
+                       0, HISTO_LENGTH - 1).long()
+    hist = torch.zeros((HISTO_LENGTH,), dtype=torch.int32,
+                       device=match_idx.device)
+    hist = hist.index_add(0, bins, valid.to(torch.int32))
+    top_vals, top_idx = topk_stable(hist, n_keep)
+    keep_bin = torch.zeros((HISTO_LENGTH,), dtype=torch.bool,
+                           device=match_idx.device)
+    keep_bin[top_idx] = top_vals > 0
+    return torch.where(valid & keep_bin[bins], match_idx, -1)
 
 
 def spatial_mask(uv_query, uv_target, radius):

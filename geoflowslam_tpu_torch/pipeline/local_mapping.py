@@ -7,8 +7,15 @@ local BA over the covisibility window -> duplicate fusion with the five
 best covisible KFs (the gated Hamming search, the CUDA kernel on the card)
 -> descriptor/normal refresh -> map-point culling -> KF culling -> the
 local-window recompute for the tracker.
+
+After a loop or a merge: `fuse_pair` welds the two loop ends, and the global
+BA runs either at once (`global_ba_step`) or as `AsyncGBA`, one GN iteration
+per tracked frame with the corrections propagated on write-back
+(LoopClosing::RunGlobalBundleAdjustment).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -176,6 +183,129 @@ def keyframe_culling(ms: M.MapState, center_kf: int,
     return ms, torch.where(do_cull, best, -1).to(torch.int32)
 
 
+def global_ba_step(ms: M.MapState, cfg: MappingConfig, ba_pts: int = 4096):
+    """GlobalBundleAdjustemnt: all KFs of the active map with its two oldest
+    fixed (the gauge), over the `ba_pts` most observed landmarks."""
+    in_win, fixed = _gba_window(ms)
+    prob, mp_idx, mp_in, ctx = _gba_extract(ms, in_win, fixed, cfg, ba_pts)
+    out, obs_inl = local_ba.local_bundle_adjustment(
+        prob, cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.bf, iters1=5, iters2=10)
+    kf_idx = torch.arange(ms.k_max, device=in_win.device)
+    return writeback_ba(ms, out, obs_inl, kf_idx, in_win, fixed, mp_idx,
+                        mp_in, ctx)
+
+
+def _gba_window(ms: M.MapState):
+    """Every valid KF of the active map; the two oldest fixed."""
+    in_win = ms.kf_valid & (ms.kf_map_id == ms.active_map)
+    times = torch.where(in_win, ms.kf_time, float("inf"))
+    o1 = torch.argmin(times)
+    times2 = times.clone()
+    times2[o1] = float("inf")
+    o2 = torch.argmin(times2)
+    fixed = torch.zeros((ms.k_max,), dtype=torch.bool, device=in_win.device)
+    fixed[o1] = True
+    fixed[o2] = True
+    return in_win, fixed
+
+
+def _gba_extract(ms: M.MapState, in_win, fixed, cfg: MappingConfig,
+                 ba_pts: int):
+    kf_idx = torch.arange(ms.k_max, device=in_win.device)
+    return extract_ba_problem(ms, kf_idx, in_win, fixed,
+                              dataclasses.replace(cfg, ba_max_pts=ba_pts))
+
+
+class AsyncGBA:
+    """Abortable global BA as interleaved micro-steps
+    (RunGlobalBundleAdjustment's detached thread with its abort flag):
+    `start` snapshots the problem, the caller runs one GN iteration per
+    frame with `step`, `abort` drops it (mbStopGBA), and `finish` writes the
+    result back, carrying the corrections to KFs inserted meanwhile through
+    the temporal chain and to the other points through their reference KF."""
+
+    def __init__(self, cfg: MappingConfig, ba_pts: int = 4096,
+                 iters_total: int = 15):
+        self.cfg = cfg
+        self.ba_pts = ba_pts
+        self.iters_total = iters_total
+        self.active = False
+        self.i = 0
+        self._prob = None
+
+    def start(self, ms: M.MapState):
+        in_win, fixed = _gba_window(ms)
+        prob, mp_idx, mp_in, _ = _gba_extract(ms, in_win, fixed, self.cfg,
+                                              self.ba_pts)
+        self._prob = prob
+        self._active_mask = (prob.obs_valid & prob.pt_valid[None, :]
+                             & prob.kf_valid[:, None])
+        self._mp_idx, self._mp_in = mp_idx, mp_in
+        self._in_win, self._fixed = in_win, fixed
+        self.i = 0
+        self.active = True
+
+    def abort(self):
+        self.active = False
+        self._prob = None
+
+    def step(self) -> bool:
+        """One GN iteration; returns True when the budget is done."""
+        if not self.active:
+            return False
+        c = self.cfg
+        self._prob = local_ba._gn_step(self._prob, self._active_mask, c.fx,
+                                       c.fy, c.cx, c.cy, c.bf, True)
+        self.i += 1
+        return self.i >= self.iters_total
+
+    def finish(self, ms: M.MapState) -> M.MapState:
+        out = self._prob
+        self.active = False
+        self._prob = None
+        return _gba_writeback(ms, out, self._in_win, self._mp_idx,
+                              self._mp_in)
+
+
+def _gba_writeback(ms: M.MapState, out: local_ba.BAProblem, in_win, mp_idx,
+                   mp_in) -> M.MapState:
+    """Write optimised poses and points; propagate the corrections to state
+    created during the run (KFs via the temporal chain, points via their
+    reference KF)."""
+    k = ms.k_max
+    new_rot = torch.where(in_win[:, None, None], out.kf_rot, ms.kf_rot)
+    new_t = torch.where(in_win[:, None], out.kf_t, ms.kf_t)
+    corrected = in_win
+    prev = ms.kf_prev.long()
+    pr = torch.clamp_min(prev, 0)
+    for _ in range(4):
+        # KFs inserted during the run: T_c_new = T_c_now T_r_now^-1 T_r_new
+        can = ms.kf_valid & ~corrected & (prev >= 0) & corrected[pr]
+        r_now, t_now = ms.kf_rot[pr], ms.kf_t[pr]
+        dr = torch.einsum("kba,kbc->kac", r_now, new_rot[pr])
+        dtv = torch.einsum("kba,kb->ka", r_now, new_t[pr] - t_now)
+        cr = torch.einsum("kab,kbc->kac", ms.kf_rot, dr)
+        ct = torch.einsum("kab,kb->ka", ms.kf_rot, dtv) + ms.kf_t
+        new_rot = torch.where(can[:, None, None], cr, new_rot)
+        new_t = torch.where(can[:, None], ct, new_t)
+        corrected = corrected | can
+    # points: optimised ones directly, others via their reference KF:
+    # X_new = T_r_new^-1 T_r_now X
+    opt_pt = scatter_set(torch.zeros((ms.m_max,), dtype=torch.bool,
+                                     device=in_win.device), mp_idx, mp_in)
+    pos = scatter_set(ms.mp_pos, mp_idx, torch.where(
+        mp_in[:, None], out.pts, ms.mp_pos[mp_idx]))
+    ref = torch.clamp(ms.mp_first_kf.long(), 0, k - 1)
+    pc = torch.einsum("mij,mj->mi", ms.kf_rot[ref], ms.mp_pos) + ms.kf_t[ref]
+    pw = torch.einsum("mji,mj->mi", new_rot[ref], pc - new_t[ref])
+    move = ms.mp_valid & ~opt_pt & corrected[ref]
+    pos = torch.where(move[:, None], pw, pos)
+    return ms._replace(
+        kf_rot=torch.where(corrected[:, None, None], new_rot, ms.kf_rot),
+        kf_t=torch.where(corrected[:, None], new_t, ms.kf_t),
+        mp_pos=pos)
+
+
 def _fuse_into(ms: M.MapState, center_kf: int, kf, enabled,
                cfg: MappingConfig, radius_px: float = 3.0) -> M.MapState:
     """Fuse the centre KF's map points into duplicates observed by `kf`:
@@ -225,6 +355,16 @@ def fuse_duplicates(ms: M.MapState, center_kf: int, cfg: MappingConfig,
     for i in range(5):
         ms = _fuse_into(ms, center_kf, nb[i], w_nb[i] > 0, cfg)
     return ms
+
+
+def fuse_pair(ms: M.MapState, kf_a: int, kf_b: int,
+              cfg: MappingConfig) -> M.MapState:
+    """Loop SearchAndFuse: after a loop or merge correction, weld the two
+    loop ends by fusing duplicates both ways with a wide radius (the
+    corrected poses overlap but share no observations yet)."""
+    enabled = ms.kf_valid[kf_a] & ms.kf_valid[kf_b] & (kf_a != kf_b)
+    ms = _fuse_into(ms, kf_a, kf_b, enabled, cfg, radius_px=6.0)
+    return _fuse_into(ms, kf_b, kf_a, enabled, cfg, radius_px=6.0)
 
 
 def refresh_point_stats(ms: M.MapState, center_kf: int, n_window: int = 10,

@@ -17,8 +17,19 @@ ICP-carried: state OK at the registered pose, the motion model learns the
 registered delta, and a keyframe without bindings every 0.5 s.
 The host reads the inlier counts once per stage and the pose once per frame;
 there is no deferred decision ring and no reader thread: a local card needs
-neither. Initialization is StereoInitialization; RECENTLY_LOST -> LOST ->
-new map follows the reference without relocalization.
+neither. Initialization is StereoInitialization.
+
+With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
+BoW database (the loop closer's, or a standalone one without loop
+closing); a failed frame falls back to TrackReferenceKeyFrame, and every
+RECENTLY_LOST frame tries to relocalize (pipeline/reloc.py) before the
+state times out to LOST and a new Atlas map. With `cfg.loop` as well, each
+KF runs place recognition after its mapping step, and a verified loop is
+closed at once (pipeline/loop_closing.py: Atlas merge or pose graph, seam
+welding), the current pose carried along and the global BA restarted as
+per-frame micro-steps (local_mapping.AsyncGBA). These follow the
+reference's staged semantics: loop detection acts at the KF rather than
+`fused_lag` frames later.
 """
 from __future__ import annotations
 
@@ -35,7 +46,11 @@ from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import of_tracking as OF
+from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline import tracking as T
+from geoflowslam_tpu_torch.pipeline.loop_closing import LoopCloser
+from geoflowslam_tpu_torch.retrieval import kf_database as DBD
+from geoflowslam_tpu_torch.retrieval import vocab as Vv
 from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
@@ -49,8 +64,9 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D and OF/ICP paths."""
-    off = {"imu": cfg.imu is None, "loop": cfg.loop is None,
+    """Raise on options outside the ported RGB-D, OF/ICP, relocalization
+    and loop-closing paths."""
+    off = {"imu": cfg.imu is None,
            "use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
            "stereo_fisheye": cfg.stereo_fisheye is None,
            "record_reproj_err": not cfg.record_reproj_err,
@@ -64,9 +80,12 @@ def check_config(cfg: SystemConfig) -> None:
 
 class SlamSystem:
     """RGB-D SLAM on one device. `device` is required to be explicit; a CUDA
-    device without CUDA raises instead of running on the CPU."""
+    device without CUDA raises instead of running on the CPU. `vocab`
+    (retrieval/vocab.py) enables relocalization and, with cfg.loop, loop
+    closing."""
 
-    def __init__(self, cfg: SystemConfig, device: torch.device | str):
+    def __init__(self, cfg: SystemConfig, device: torch.device | str,
+                 vocab: Optional[Vv.Vocabulary] = None):
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamSystem: CUDA device requested but "
@@ -116,6 +135,24 @@ class SlamSystem:
         self._icp_accepted = torch.zeros((), dtype=torch.long, device=dev)
         self.n_icp_carried = 0
         self._carried_streak = 0   # consecutive ICP-carried frames
+        # recovery and loop closing: the BoW database is the loop closer's,
+        # or a standalone one when loop closing is off (the reference's
+        # System-owned KeyFrameDatabase)
+        self.vocab = vocab.to(dev) if vocab is not None else None
+        self.loop_closer = (
+            LoopCloser(self.vocab, cfg.k_max, cfg.loop, map_cfg=self.mcfg,
+                       device=dev)
+            if self.vocab is not None and cfg.loop is not None else None)
+        self._reloc_db = (
+            DBD.KFDatabase.create(cfg.k_max, self.vocab.n_words, dev)
+            if self.vocab is not None and self.loop_closer is None else None)
+        self._reloc_gen = torch.Generator(device=dev)
+        self._reloc_gen.manual_seed(1234)
+        self.n_reloc = 0              # successful relocalizations
+        self._gba = LM.AsyncGBA(self.mcfg) if cfg.loop is not None else None
+        # slot -> (cloud, valid) of the last 40 KFs with use_icp, for the
+        # loop closer's use_icp_loop refinement
+        self._kf_clouds: dict = {}
 
     # -- public API ----------------------------------------------------------
 
@@ -136,6 +173,8 @@ class SlamSystem:
             self._initialize(frame, timestamp)
         else:
             frame = self._track_frame(frame, timestamp)
+        if self._gba is not None and self._gba.active and self._gba.step():
+            self._finish_gba()
         if self.cfg.use_of or self.cfg.use_icp:
             self.last_frame = frame
         self.last_time = timestamp
@@ -204,9 +243,18 @@ class SlamSystem:
             out.append((ts, _twc(r_cw, t_cw)))
         return out
 
+    @property
+    def reloc_db(self) -> Optional[DBD.KFDatabase]:
+        """The relocalization BoW database (the loop closer's when loop
+        closing is on)."""
+        if self.loop_closer is not None:
+            return self.loop_closer.db
+        return self._reloc_db
+
     def reset_active_map(self):
         """System::ResetActiveMap: reinitialize in a fresh Atlas map."""
         self.ms = M.create_new_map(self.ms)
+        self._kf_clouds.clear()
         self._restart()
 
     # -- internals -------------------------------------------------------------
@@ -260,6 +308,20 @@ class SlamSystem:
         self.state = TrackingState.OK
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
+        self._db_insert_kf(slot)
+
+    def _db_insert_kf(self, slot: int):
+        """Enter a KF into the BoW database; for loop-closing systems the
+        per-KF detect step does this itself after initialization."""
+        if self.vocab is None:
+            return
+        db = DBD.add_keyframe(self.reloc_db, self.vocab, slot,
+                              self.ms.kf_desc[slot],
+                              self.ms.kf_kp_valid[slot])
+        if self.loop_closer is not None:
+            self.loop_closer.db = db
+        else:
+            self._reloc_db = db
 
     def _track_frame(self, frame: FrameData, timestamp: float) -> FrameData:
         """Track one frame after initialization; returns the frame with its
@@ -293,6 +355,15 @@ class SlamSystem:
             res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp,
                                             last_rot, last_t, wide,
                                             self.last_levels)
+            n1 = int(res.n_inliers)
+        if n1 < min_ok and self.vocab is not None:
+            # BoW-gated matching against the reference KF
+            wf = Vv.descend(self.vocab, frame.feat.desc, frame.feat.valid)
+            wk = Vv.descend(self.vocab, self.ms.kf_desc[self.ref_kf],
+                            self.ms.kf_kp_valid[self.ref_kf])
+            res = T.track_reference_keyframe(self.ms, frame, wf, wk,
+                                             self.ref_kf, last_rot, last_t,
+                                             self.tcfg)
             n1 = int(res.n_inliers)
         ms2, res2 = self.ms, res
         if n1 >= min_ok:
@@ -343,11 +414,30 @@ class SlamSystem:
         if self.state == TrackingState.OK:
             self.state = TrackingState.RECENTLY_LOST
             self.lost_since = timestamp
-        if (self.state == TrackingState.RECENTLY_LOST
-                and timestamp - self.lost_since > self.cfg.time_recently_lost):
-            self.state = TrackingState.LOST
-            self._reset_or_new_map()
+        if self.state == TrackingState.RECENTLY_LOST:
+            if self._relocalize(frame):
+                self.state = TrackingState.OK
+                self.lost_since = None
+            elif timestamp - self.lost_since > self.cfg.time_recently_lost:
+                self.state = TrackingState.LOST
+                self._reset_or_new_map()
         return frame
+
+    def _relocalize(self, frame: FrameData) -> bool:
+        """Tracking::Relocalization over the top-3 BoW candidates of the
+        active map; adopts the pose when pose-only GN keeps min_inliers_ok
+        inliers."""
+        if self.vocab is None:
+            return False
+        n_inl, rot, t, obs2, _ = R.reloc_core(
+            self.vocab, self.reloc_db, self.ms, frame, self._reloc_gen,
+            self.tcfg, self.cfg.frame.orb.width, self.cfg.frame.orb.height)
+        if int(n_inl) < self.cfg.min_inliers_ok:
+            return False
+        self.cur_rot, self.cur_t = rot, t
+        self.last_obs_mp = obs2
+        self.n_reloc += 1
+        return True
 
     def _set_pose(self, rot, t, last_rot, last_t):
         """Adopt Tcw and learn the motion model Tcl = Tcw Tlw^-1, its
@@ -422,9 +512,58 @@ class SlamSystem:
         self._last_kf_time = timestamp
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
+        if self.cfg.use_icp:
+            # insertion order, a reused slot re-entering as the newest
+            self._kf_clouds.pop(slot, None)
+            self._kf_clouds[slot] = (frame.cloud, frame.cloud_valid)
+            while len(self._kf_clouds) > 40:
+                self._kf_clouds.pop(next(iter(self._kf_clouds)))
+        if self.loop_closer is None:
+            self._db_insert_kf(slot)
+            return
+        self.ms, found = self.loop_closer.on_keyframe(
+            self.ms, slot, kf_clouds=self._kf_clouds or None)
+        if not found:
+            return
+        # the correction moved the map: carry the KF's correction onto the
+        # current pose, drop dead bindings, restart the global BA
+        self._carry_ref_correction(kf_rot, kf_t)
+        obs = self.ms.kf_obs_mp[slot]
+        self.last_obs_mp = torch.where(
+            (obs >= 0) & self.ms.mp_valid[torch.clamp_min(obs, 0).long()],
+            obs, M.NO_MP)
+        self.local_masks = None
+        if self._gba is not None and self.cfg.loop.async_global_ba:
+            self._gba.abort()
+            self._gba.start(self.ms)
+
+    def _carry_ref_correction(self, r_ref_old, t_ref_old):
+        """The map moved under the tracker: T_cur' = T_cur T_ref_old^-1
+        T_ref_new with the reference KF's old and new poses."""
+        ri, ti = lie.se3_inverse(r_ref_old, t_ref_old)
+        dr, dt = lie.se3_compose(ri, ti, self.ms.kf_rot[self.ref_kf],
+                                 self.ms.kf_t[self.ref_kf])
+        self.cur_rot, self.cur_t = lie.se3_compose(self.cur_rot, self.cur_t,
+                                                   dr, dt)
+        self.has_vel = False
+
+    def _finish_gba(self):
+        """Write the finished global BA back and carry the reference KF's
+        correction onto the current pose when tracking."""
+        r_old, t_old = self.ms.kf_rot[self.ref_kf], self.ms.kf_t[self.ref_kf]
+        self.ms = self._gba.finish(self.ms)
+        if self.state == TrackingState.OK:
+            self._carry_ref_correction(r_old, t_old)
+        self.local_masks = None
 
     def _on_kf_culled(self, ms: M.MapState, culled: int):
-        """Snapshot T_culled<-parent for trajectory rebasing (mTcp)."""
+        """Snapshot T_culled<-parent for trajectory rebasing (mTcp), and
+        drop the KF from the BoW database."""
+        if self.loop_closer is not None:
+            self.loop_closer.db = DBD.erase_keyframe(self.loop_closer.db,
+                                                     culled)
+        elif self._reloc_db is not None:
+            self._reloc_db = DBD.erase_keyframe(self._reloc_db, culled)
         gen = self._kf_gen.get(culled)
         prev = int(ms.kf_prev[culled])
         if gen is not None and 0 <= prev < ms.k_max and bool(

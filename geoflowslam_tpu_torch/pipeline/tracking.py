@@ -4,6 +4,9 @@
 * `track_with_motion_model` <- TrackWithMotionModel: project the last
   frame's map points at the predicted pose, gated projection search (the
   CUDA kernel on the card), pose-only GN.
+* `track_reference_keyframe` <- TrackReferenceKeyFrame: BoW-word-gated
+  mutual matching against the reference KF, rotation consistency,
+  pose-only GN (the plain masked search: no TPU kernel computed it).
 * `track_local_map`         <- TrackLocalMap + SearchLocalPoints: covisible
   window candidates, frustum gates, projection search, pose-only GN, the
   found/visible counters.
@@ -135,6 +138,30 @@ def track_with_motion_model(ms: M.MapState, frame: FrameData,
         obs_mp = torch.where(obs_mp == M.NO_MP, extra_obs, obs_mp)
     rot, t, obs_mp, n_inl = pose_opt_from_obs(ms, frame, obs_mp, pred_rot,
                                               pred_t, cfg)
+    return TrackResult(rot, t, obs_mp, n_inl)
+
+
+def track_reference_keyframe(ms: M.MapState, frame: FrameData,
+                             words_frame, words_kf, ref_kf: int, rot0, t0,
+                             cfg: TrackConfig) -> TrackResult:
+    """Match the frame against the reference KF's map points where both
+    keypoints descend to the same vocabulary word (SearchByBoW), keep the
+    rotation-consistent matches, then pose-only GN from (rot0, t0)."""
+    feat = frame.feat
+    kf_obs = ms.kf_obs_mp[ref_kf]
+    kf_ok = (ms.kf_kp_valid[ref_kf] & (kf_obs >= 0)
+             & ms.mp_valid[torch.clamp_min(kf_obs, 0).long()])
+    same_word = ((words_frame[:, None] == words_kf[None, :])
+                 & (words_frame >= 0)[:, None] & (words_kf >= 0)[None, :])
+    m_idx, _ = matching.match_descriptors(
+        feat.desc, feat.valid, ms.kf_desc[ref_kf], kf_ok,
+        max_dist=matching.TH_LOW, ratio=0.7, mutual=True, mask=same_word)
+    m_idx = matching.rotation_consistency(feat.angle, ms.kf_angle[ref_kf],
+                                          m_idx)
+    obs_mp = torch.where(m_idx >= 0, kf_obs[torch.clamp_min(m_idx, 0).long()],
+                         M.NO_MP)
+    rot, t, obs_mp, n_inl = pose_opt_from_obs(ms, frame, obs_mp, rot0, t0,
+                                              cfg)
     return TrackResult(rot, t, obs_mp, n_inl)
 
 

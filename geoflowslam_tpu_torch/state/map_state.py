@@ -1,5 +1,6 @@
 """The SLAM map as fixed-capacity tensors (port of
-geoflowslam_tpu/state/map_state.py, the parts the RGB-D slice uses).
+geoflowslam_tpu/state/map_state.py, the parts the RGB-D, relocalization and
+loop-closing slices use).
 
 Keyframes live in K slots and map points in M slots, with validity masks;
 `kf_obs_mp` [K, N] maps each keyframe keypoint to a map-point slot (-1 =
@@ -300,3 +301,24 @@ def create_new_map(ms: MapState) -> MapState:
         viba2_done=torch.zeros_like(ms.viba2_done),
     )
 
+
+def merge_maps(ms: MapState, from_map, into_map, s, rot, t) -> MapState:
+    """Relabel `from_map` into `into_map`, applying the world Sim3
+    X' = s R X + t to its KFs and MPs (LoopClosing::MergeLocal essence);
+    `into_map` becomes the active map."""
+    kf_sel = ms.kf_valid & (ms.kf_map_id == from_map)
+    mp_sel = ms.mp_valid & (ms.mp_map_id == from_map)
+    # Tcw' = Tcw S^-1: R_cw' = R_cw R^T, t_cw' = s t_cw - R_cw R^T t
+    new_rot = torch.einsum("kij,lj->kil", ms.kf_rot, rot)
+    new_t = s * ms.kf_t - torch.einsum("kij,j->ki", new_rot, t)
+    new_pos = s * ms.mp_pos @ rot.T + t
+    into = torch.as_tensor(into_map, dtype=torch.int32,
+                           device=ms.kf_map_id.device)
+    return ms._replace(
+        kf_rot=torch.where(kf_sel[:, None, None], new_rot, ms.kf_rot),
+        kf_t=torch.where(kf_sel[:, None], new_t, ms.kf_t),
+        kf_map_id=torch.where(kf_sel, into, ms.kf_map_id),
+        mp_pos=torch.where(mp_sel[:, None], new_pos, ms.mp_pos),
+        mp_map_id=torch.where(mp_sel, into, ms.mp_map_id),
+        active_map=into.clone(),
+    )

@@ -11,6 +11,7 @@ import torch
 from geoflowslam_tpu.eval import ate as ate_jax
 from geoflowslam_tpu.ops.extractor import OrbConfig as JOrb
 from geoflowslam_tpu.pipeline.local_mapping import MappingConfig as JMap
+from geoflowslam_tpu.pipeline.loop_closing import LoopConfig as JLoop
 from geoflowslam_tpu.pipeline.system import SystemConfig as JSys
 from geoflowslam_tpu.pipeline.tracking import TrackConfig as JTrack
 from geoflowslam_tpu.state.frame import FrameConfig as JFrame
@@ -21,7 +22,7 @@ from geoflowslam_tpu_torch.eval import ate as ate_torch
 torch.set_num_threads(2)
 
 PAIRS = [(C.OrbConfig, JOrb), (C.FrameConfig, JFrame), (C.TrackConfig, JTrack),
-         (C.MappingConfig, JMap), (C.SystemConfig, JSys)]
+         (C.MappingConfig, JMap), (C.LoopConfig, JLoop), (C.SystemConfig, JSys)]
 PORT_DIR = Path(__file__).resolve().parents[1] / "geoflowslam_tpu_torch"
 
 

@@ -1,14 +1,19 @@
 """The port's kernel plumbing without a card: CPU tensors take the plain
 versions and never touch a kernel, CUDA requests without CUDA raise, the
 kernel sources are in the repository, their build directory is ignored by
-git, and the kernel module imports on a machine without nvcc."""
+git, and the kernel module imports on a machine without nvcc. K4's plain
+version (the ungated best-two search) and match_descriptors are exact
+against the JAX package's XLA path."""
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from geoflowslam_tpu.ops import matching as JM
 
 from geoflowslam_tpu_torch import config as C
 from geoflowslam_tpu_torch import kernels
@@ -28,6 +33,7 @@ def _forbid_kernels(monkeypatch):
     monkeypatch.setattr(kernels, "fast_scores", boom)
     monkeypatch.setattr(kernels, "gated_hamming_search", boom)
     monkeypatch.setattr(kernels, "lk_level", boom)
+    monkeypatch.setattr(kernels, "hamming_best2", boom)
     monkeypatch.setattr(kernels, "load", boom)
 
 
@@ -58,9 +64,15 @@ def test_cpu_tensors_dispatch_to_plain(monkeypatch):
     want = KLT._track_level(img, img, pts, pts + 0.5, 21, 5, 1e-4)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    dq, vq, dt, vt = (T(x) for x in _k4_inputs(40, 60, seed=1))
+    got = MA.hamming_best2(dq, vq, dt, vt)
+    want = MA.hamming_best2_plain(dq, vq, dt, vt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    MA.match_descriptors(dq, vq, dt, vt, mutual=True)
     assert kernels.launch_counts == {"fast_scores": 0,
                                      "gated_hamming_search": 0,
-                                     "lk_level": 0}
+                                     "lk_level": 0, "hamming_best2": 0}
 
 
 def test_launchers_reject_cpu_tensors():
@@ -72,6 +84,10 @@ def test_launchers_reject_cpu_tensors():
             z2, zi, zi.bool(), torch.zeros(4, 8, dtype=torch.int32),
             torch.zeros(4), z2, zi, zi.bool(),
             torch.zeros(4, 8, dtype=torch.int32), -1, 1, MA.BIG)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.hamming_best2(torch.zeros(4, 8, dtype=torch.int32), zi.bool(),
+                              torch.zeros(4, 8, dtype=torch.int32), zi.bool(),
+                              MA.BIG)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lk_level(torch.zeros(8, 8), torch.zeros(8, 8), z2, z2, 21, 10,
                          1e-4)
@@ -115,3 +131,68 @@ def test_kernel_module_imports_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "CUDA_NVCC", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels._find_nvcc()
+
+
+def T(a):
+    a = np.asarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _k4_inputs(n, m, seed, all_invalid_t=False):
+    """Descriptors with ~25% invalid rows and columns, queries copied from
+    targets and duplicated targets (ties on best and second); an all-invalid
+    target set gives every row no valid pair."""
+    rs = np.random.RandomState(seed)
+    dq = rs.randint(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    dt = rs.randint(0, 2 ** 32, (m, 8), dtype=np.uint64).astype(np.uint32)
+    k = min(n, m) // 3
+    dq[:k] = dt[rs.randint(0, m, k)]
+    dt[m // 2:m // 2 + m // 6] = dt[:m // 6]
+    j = min(10, n - k, m)
+    dq[k:k + j] = dt[:j] ^ np.uint32(1 << 7)
+    vq = rs.rand(n) > 0.25
+    vt = np.zeros(m, bool) if all_invalid_t else rs.rand(m) > 0.25
+    return dq, vq, dt, vt
+
+
+K4_CASES = [(100, 120, False), (131, 77, False), (64, 200, True),
+            (1, 3, False)]
+
+
+@pytest.mark.parametrize("n,m,none_valid", K4_CASES)
+def test_hamming_best2_plain_matches_jax(n, m, none_valid):
+    """Best, second and argbest against JAX's hamming_matrix + BIG mask +
+    _best_two, and the swapped search's argbest against jnp.argmin of the
+    transpose, exact (ties to the lowest index, (BIG, BIG, 0) rows)."""
+    dq, vq, dt, vt = _k4_inputs(n, m, seed=n + m, all_invalid_t=none_valid)
+    dist = JM.hamming_matrix(jnp.asarray(dq), jnp.asarray(dt))
+    invalid = (~jnp.asarray(vq)[:, None]) | (~jnp.asarray(vt)[None, :])
+    dist = jnp.where(invalid, JM.BIG, dist)
+    jb, js, ji = (np.asarray(x) for x in JM._best_two(dist))
+    tb, ts, ti = MA.hamming_best2_plain(T(dq), T(vq), T(dt), T(vt))
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    np.testing.assert_array_equal(ts.numpy(), js)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    col = MA.hamming_best2_plain(T(dt), T(vt), T(dq), T(vq))[2]
+    np.testing.assert_array_equal(col.numpy(),
+                                  np.asarray(jnp.argmin(dist.T, axis=1)))
+    if none_valid:
+        assert (tb == MA.BIG).all() and (ts == MA.BIG).all()
+        assert (ti == 0).all()
+    assert int((tb == ts).sum()) > 0 or n < 10     # ties were exercised
+
+
+@pytest.mark.parametrize("n,m,none_valid", K4_CASES)
+@pytest.mark.parametrize("mutual", [False, True])
+def test_match_descriptors_unmasked_matches_jax(n, m, none_valid, mutual):
+    dq, vq, dt, vt = _k4_inputs(n, m, seed=3 * n + m,
+                                all_invalid_t=none_valid)
+    for max_dist, ratio in ((JM.TH_LOW, 0.85), (JM.TH_HIGH, 1.0)):
+        ij, dj = JM.match_descriptors(
+            jnp.asarray(dq), jnp.asarray(vq), jnp.asarray(dt),
+            jnp.asarray(vt), max_dist=max_dist, ratio=ratio, mutual=mutual)
+        it, dtt = MA.match_descriptors(T(dq), T(vq), T(dt), T(vt),
+                                       max_dist=max_dist, ratio=ratio,
+                                       mutual=mutual)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(dtt.numpy(), np.asarray(dj))

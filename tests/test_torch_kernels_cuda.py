@@ -54,6 +54,56 @@ def test_gated_hamming_kernel_exact(cuda, n, m):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n,m,none_valid", [(1000, 1000, False),
+                                            (777, 1013, False),
+                                            (2048, 1000, False),
+                                            (1, 1, False), (64, 300, True)])
+def test_hamming_best2_kernel_exact(cuda, n, m, none_valid):
+    """K4 forward and swapped against its plain version, exact: ~25%
+    invalid rows and columns, queries copied from targets and duplicated
+    targets (ties to the lowest index), (BIG, BIG, 0) where a row has no
+    valid target."""
+    rs = np.random.RandomState(n + m)
+    dq = rs.randint(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64).astype(np.int32)
+    dt = rs.randint(-2 ** 31, 2 ** 31, (m, 8), dtype=np.int64).astype(np.int32)
+    k = min(n, m) // 4
+    dq[:k] = dt[rs.randint(0, m, k)]
+    dt[m // 2:m // 2 + m // 8] = dt[:m // 8]
+    vq, vt = rs.rand(n) > 0.25, rs.rand(m) > 0.25
+    if none_valid:
+        vt[:] = False
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    for args in ((c(dq), c(vq), c(dt), c(vt)), (c(dt), c(vt), c(dq), c(vq))):
+        got = kernels.hamming_best2(*args, MA.BIG)
+        want = MA.hamming_best2_plain(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_match_descriptors_on_cuda_goes_through_the_kernel(cuda,
+                                                           monkeypatch):
+    """An unmasked match launches K4 twice with mutual (once each way), and
+    equals the CPU result; with the launcher made to raise, it raises."""
+    rs = np.random.RandomState(5)
+    d = rs.randint(-2 ** 31, 2 ** 31, (300, 8), dtype=np.int64).astype(np.int32)
+    e = d.copy()
+    e[::3] ^= 1 << 5
+    v = rs.rand(300) > 0.1
+    cpu = [torch.from_numpy(x) for x in (d, v, e, v)]
+    kernels.reset_launch_counts()
+    got = MA.match_descriptors(*(x.to(cuda) for x in cpu), mutual=True)
+    assert kernels.launch_counts["hamming_best2"] == 2
+    want = MA.match_descriptors(*cpu, mutual=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+    def boom(*a, **k):
+        raise RuntimeError("hamming_best2 launcher reached")
+    monkeypatch.setattr(kernels, "hamming_best2", boom)
+    with pytest.raises(RuntimeError, match="launcher reached"):
+        MA.match_descriptors(*(x.to(cuda) for x in cpu), mutual=False)
+
+
 def _lk_case(cuda, h, w, n, seed):
     """Smooth random texture, the same moved by (3, -2) px, n points (some
     past the border) and guesses up to 3 px off."""
