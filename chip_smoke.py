@@ -26,21 +26,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
      mutual check), ~25% invalid rows and columns, duplicated descriptors
      (index ties), and a (64, 300) case with no valid target: best, second
      and idx torch.equal; kernel and plain times;
+  5b. fast_fused: the fused K1 (fast_nms_levels: both thresholds, NMS and
+     the border mask of all 8 levels in one launch) vs its plain version on
+     the 8-level x1.2 pyramid of a random 480x640 image and of one with flat
+     regions (NMS ties): both maps of every level torch.equal; times at the
+     path's shape;
   6. lk: K3 lk_level vs its plain version (ops/klt._track_level) on smooth
      random textures at the four LK level shapes of 480x640, N = 1256
      points (~5% near or past the border, some on a flat patch), guesses
      up to 3 px off, win 21 and 31, 10 iterations: where both say ok the
      tracked points agree within 1e-3 px and err within 1e-4, and ok
      differs on at most 0.5% of the points; kernel and plain times;
+  6b. lk_fused: the fused K3 (lk_pyramid: both streams' forward-backward
+     coarse-to-fine track in one launch) vs ops/klt.fb_klt_track per stream,
+     2 streams x 1256 points, 3 and 4 forward levels, 1 backward, win 21, 10
+     iterations, on the 4-level LK pyramid of 480x640: the tolerances of 6,
+     with status in place of ok;
+  6c. entry points: the per-level kernels' public entries (ops/fast.
+     fast_scores_two on 8 levels, ops/klt.klt_track over 4 levels) at full
+     width on the card, counted apart from the paths under
+     `entry_point_launches` (their `launches` read 0: no path runs them);
   7. rgbd: 150 frames at 30 fps of the synthetic room at 640x480, rendered
      by the port, through SlamSystem.track_rgbd with the default
      SystemConfig (1000 features, 8 levels, k_max 256, m_max 65536): state
      OK, >= 3 keyframes, ATE < 5 cm and RPE < 3 cm against ground truth,
-     finite poses, and K1 and K2 launched by the path;
+     finite poses, K2 launched by the path and the fused K1 exactly once
+     per frame;
   8. of_icp: the same with use_of, use_icp and n_of_slots = 256, 150
      frames at 10 fps, a fresh map: the same gates, optical-flow points
-     appended, at least one accepted ICP prediction, and K1, K2 and K3
-     launched by the path;
+     appended, at least one accepted ICP prediction, K2 launched, the fused
+     K1 exactly once per frame and the fused K3 once per frame after the
+     first;
   9. reloc: relocalization at full width with the shipped vocabulary (see
      phase_reloc): a relocalization brings the lost system back to OK
      without a new map, within 10 cm of the first pass, K4 launched; ms per
@@ -50,9 +66,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the shipped vocabulary (see phase_merge): OK, a merge or loop, >= 90%
      of the KFs in the active map, K4 and K2 launched; ms of the
      loop-correcting KF frame.
-Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is a JSON summary of the kernels (launches summed
-over the paths); the last line is {"ok": true, "device": {...}}.
+Each path's launch counts are set to 0 just before it and read just after;
+every path launches the fused K1 once per frame and the per-level K1 and K3
+never. Every kernel has three times: `ms`, the CUDA-event median around its
+Python launcher; `device_ms`, the kernel alone (its C entry launches it 200
+and 400 times back to back between one event pair each, and the difference
+over 200 is one launch; see device_ms); `plain_ms`; and `bound_ms`, the
+least time the card could take, the larger of its bytes over 3.35 TB/s and
+its operations over 67 TFLOP/s, worked out from this run's inputs. No
+PyTorch call computes any of these functions, so `library_ms` is null. The
+line before the last is a JSON summary of the kernels (`launches` summed
+over the four paths and nothing else); the last line is
+{"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -76,7 +101,7 @@ from geoflowslam_tpu_torch.io.synthetic import (Camera, SyntheticSequence,
 from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
-from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
+from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
 from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.retrieval import vocab as V
@@ -86,10 +111,16 @@ KERNEL_INFO = {
     "fast_scores": dict(
         source="geoflowslam_tpu_torch/kernels/csrc/fast_scores.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:104"),
+    "fast_nms_levels": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/fast_scores.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:104"),
     "gated_hamming_search": dict(
         source="geoflowslam_tpu_torch/kernels/csrc/gated_hamming.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:300"),
     "lk_level": dict(
+        source="geoflowslam_tpu_torch/kernels/csrc/lk_level.cu",
+        replaces="geoflowslam_tpu/ops/pallas_kernels.py:461"),
+    "lk_pyramid": dict(
         source="geoflowslam_tpu_torch/kernels/csrc/lk_level.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:461"),
     "hamming_best2": dict(
@@ -110,6 +141,41 @@ LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 LK_TOL_PX = 1e-3     # tracked points where both versions say ok
 LK_TOL_OK = 0.005    # share of points whose ok differs
 LK_TOL_ERR = 1e-4    # mean |residual| where both say ok
+# The fused K3 is held to the same bounds over its 3 + 1 and 4 + 1 levels
+# (the x2 between levels doubles a coarse level's difference, the next
+# level's Gauss-Newton steps contract it again), with status, which adds the
+# forward-backward gate's edge, in place of ok.
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and float32 rate outside the tensor cores; integer work is reckoned
+# at the float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+DEVICE_REPS = 200    # back-to-back launches timed for device_ms
+# Operations per pixel of FAST at two thresholds: 16 ring terms of 17 (the
+# difference, four compares, and per threshold and side a subtract, a max
+# and an add), four arc tests of 11, six to combine; of the NMS and border
+# mask for both maps: 2 x (8 max, a compare, a select) + 2.
+FAST_OPS_PX = 16 * 17 + 4 * 11 + 6
+NMS_OPS_PX = 2 * 10 + 2
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least ms the card could take, which limit sets it): every input byte
+    read once and every output byte written once at the memory rate, against
+    the operations at the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lk_point_level_ops(win: int, iters: int) -> int:
+    """Float32 operations of one point on one level: the (win+2)^2 template
+    (7 a bilinear sample), gradients and structure tensor (10 a sample), a
+    Gauss-Newton pass (sample, residual, two products and sums: 12), the
+    residual pass (9), and ~40 for the gate and the solves."""
+    nw = win * win
+    return (win + 2) ** 2 * 7 + nw * 10 + iters * nw * 12 + nw * 9 + 40
 
 
 def cuda_ms(fn, reps: int = 25) -> float:
@@ -127,6 +193,44 @@ def cuda_ms(fn, reps: int = 25) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(launch, reps: int = DEVICE_REPS) -> float:
+    """Milliseconds of the kernel alone. launch(reps=n) makes the C entry
+    launch the kernel n times back to back; the event-pair time of 2 x reps
+    launches minus that of reps (medians of 5), over reps, leaves out what
+    the host does before the first launch. The gap between two launches
+    stays in (a few microseconds at most: a 32x32 FAST reads 0.0044 ms this
+    way), so the number is an upper bound of the kernel's duration."""
+    launch(reps=3)
+    torch.cuda.synchronize()
+
+    def window(n):
+        times = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            launch(reps=n)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    return (window(2 * reps) - window(reps)) / reps
+
+
+def _times(summary, name, launch, plain, n_bytes, n_ops):
+    """Time a kernel three ways beside its bound and keep the numbers under
+    its launcher's name."""
+    ms = cuda_ms(launch)
+    dms = device_ms(launch)
+    pms = cuda_ms(plain)
+    bms, by = bound_ms(n_bytes, n_ops)
+    summary[name].update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None)
+    return (f"kernel {ms:.4f} ms with its launcher, {dms:.4f} ms on the "
+            f"device, plain {pms:.4f} ms, bound {bms:.5f} ms ({by})")
 
 
 def phase_device():
@@ -164,13 +268,67 @@ def phase_fast(summary):
         e = max(float((lo_k - lo_p).abs().max()),
                 float((hi_k - hi_p).abs().max()))
         err = max(err, e)
-        ms = cuda_ms(lambda: kernels.fast_scores(img, 7.0, 20.0))
-        pms = cuda_ms(lambda: FAST.fast_score_maps(img, [7.0, 20.0]))
-        print(f"[K1] fast_scores {h}x{w}: equal, max_abs_err {e}, "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
         if (h, w) == (480, 640):
-            summary["fast_scores"].update(ms=ms, plain_ms=pms)
+            t = _times(summary, "fast_scores",
+                       lambda reps=1: kernels.fast_scores(img, 7.0, 20.0,
+                                                          reps=reps),
+                       lambda: FAST.fast_score_maps(img, [7.0, 20.0]),
+                       12 * h * w, FAST_OPS_PX * h * w)
+        else:
+            ms = cuda_ms(lambda: kernels.fast_scores(img, 7.0, 20.0))
+            t = f"kernel {ms:.4f} ms with its launcher"
+        print(f"[K1] fast_scores {h}x{w}: equal, max_abs_err {e}, {t}")
     summary["fast_scores"]["max_abs_err"] = err
+
+
+def _flat_image(rs, h, w):
+    """Random 12 px blocks: corners between flat regions, where equal scores
+    meet in the non-maximum suppression."""
+    big = np.kron(rs.randint(0, 6, (h // 12 + 1, w // 12 + 1)) * 50.0,
+                  np.ones((12, 12)))
+    return torch.from_numpy(big[:h, :w].astype(np.float32)).cuda()
+
+
+def phase_fast_fused(summary):
+    """The fused K1 on the path's 8-level pyramid, exact."""
+    rs = np.random.RandomState(1)
+    rand = torch.from_numpy((rs.rand(480, 640) * 255).astype(np.float32))
+    worst = 0.0
+    for tag, img in (("random", rand.cuda()),
+                     ("flat regions", _flat_image(rs, 480, 640))):
+        levels = build_pyramid(img, 8, 1.2)
+        got = kernels.fast_nms_levels(levels, 7.0, 20.0, 16)
+        want = FAST.fast_nms_levels_plain(levels, 7.0, 20.0, 16)
+        torch.cuda.synchronize()
+        n_kept, n_raw = 0, 0
+        for lvl, (g, p) in enumerate(zip(got, want)):
+            for name, a, b in zip(("low", "high"), g, p):
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"fast_nms_levels differs from plain on the {tag} "
+                        f"image, level {lvl}, {name} threshold, in "
+                        f"{int((a != b).sum())} pixels")
+            n_kept += int((g[0] > 0).sum())
+            n_raw += int((FAST.fast_score_maps(levels[lvl], [7.0])[0][
+                16:-16, 16:-16] > 0).sum())
+        print(f"[K1f] fast_nms_levels, {tag} image, 8 levels: both maps of "
+              f"every level equal; {n_kept} of {n_raw} low-threshold "
+              f"responses inside the border survive the suppression")
+        if n_kept <= 0:
+            raise AssertionError("the fused FAST kept no response")
+    levels = build_pyramid(rand.cuda(), 8, 1.2)
+    # what the outputs depend on: scores up to 1 px outside the border mask
+    px = sum(h * w for h, w in (x.shape for x in levels))
+    px_fast = sum((h - 30) * (w - 30) for h, w in (x.shape for x in levels))
+    px_nms = sum((h - 32) * (w - 32) for h, w in (x.shape for x in levels))
+    t = _times(summary, "fast_nms_levels",
+               lambda reps=1: kernels.fast_nms_levels(levels, 7.0, 20.0, 16,
+                                                      reps=reps),
+               lambda: FAST.fast_nms_levels_plain(levels, 7.0, 20.0, 16),
+               12 * px, FAST_OPS_PX * px_fast + NMS_OPS_PX * px_nms)
+    print(f"[K1f] fast_nms_levels 8 levels of 480x640 ({px} px): {t}")
+    summary["fast_nms_levels"]["max_abs_err"] = worst
 
 
 def _k2_inputs(n, m, seed):
@@ -210,14 +368,26 @@ def phase_hamming(summary):
                     f"gated_hamming_search {name} differs from plain at "
                     f"N={n} M={m} in {bad} rows")
         n_match = int((k[2] >= 0).sum())
-        ms = cuda_ms(lambda: kernels.gated_hamming_search(*args, -1, 1,
-                                                          MA.BIG))
-        pms = cuda_ms(lambda: MA.gated_hamming_plain(*args, -1, 1))
-        print(f"[K2] gated_hamming_search N={n} M={m}: equal "
-              f"({n_match} rows with a candidate), kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms")
         if n == 2048:
-            summary["gated_hamming_search"].update(ms=ms, plain_ms=pms)
+            # a pair costs 13 operations to gate (validity, two differences,
+            # two abs, four compares, the level offset, three ands) and, if
+            # it passes, 28 more (8 xor, 8 popc, 8 adds, the best-two update)
+            gate = (MA.spatial_mask(a["uv_q"], a["uv_t"], a["radius"])
+                    & MA.level_mask(a["level_q"], a["level_t"], -1, 1)
+                    & a["valid_q"][:, None] & a["valid_t"][None, :])
+            n_pass = int(gate.sum())
+            t = _times(summary, "gated_hamming_search",
+                       lambda reps=1: kernels.gated_hamming_search(
+                           *args, -1, 1, MA.BIG, reps=reps),
+                       lambda: MA.gated_hamming_plain(*args, -1, 1),
+                       n * 49 + m * 45 + n * 12, n * m * 13 + n_pass * 28)
+            t += f"; {n_pass} of {n * m} pairs pass the gates"
+        else:
+            ms = cuda_ms(lambda: kernels.gated_hamming_search(*args, -1, 1,
+                                                              MA.BIG))
+            t = f"kernel {ms:.4f} ms with its launcher"
+        print(f"[K2] gated_hamming_search N={n} M={m}: equal "
+              f"({n_match} rows with a candidate), {t}")
         worst = max(worst, err)
     summary["gated_hamming_search"]["max_abs_err"] = float(worst)
 
@@ -259,13 +429,19 @@ def phase_hamming_best2(summary):
         n_tie = int((k[0] == k[1]).sum())
         print(f"[K4] hamming_best2 N={n} M={m}: forward and swapped equal "
               f"(rows with best == second: {n_tie})")
-        if (n, m) in cases:
+        if (n, m) == (1000, 1000):
+            # every pair: 8 xor, 8 popc, 8 adds, the validity select and the
+            # best-two update, 30 operations
+            t = _times(summary, "hamming_best2",
+                       lambda reps=1: kernels.hamming_best2(
+                           dq, vq, dt, vt, MA.BIG, reps=reps),
+                       lambda: MA.hamming_best2_plain(dq, vq, dt, vt),
+                       (n + m) * 33 + n * 12, n * m * 30)
+            print(f"[K4] hamming_best2 N={n} M={m}: {t}")
+        elif (n, m) in cases:
             ms = cuda_ms(lambda: kernels.hamming_best2(dq, vq, dt, vt, MA.BIG))
-            pms = cuda_ms(lambda: MA.hamming_best2_plain(dq, vq, dt, vt))
-            print(f"[K4] hamming_best2 N={n} M={m}: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms")
-            if (n, m) == (1000, 1000):
-                summary["hamming_best2"].update(ms=ms, plain_ms=pms)
+            print(f"[K4] hamming_best2 N={n} M={m}: kernel {ms:.4f} ms with "
+                  f"its launcher")
     summary["hamming_best2"]["max_abs_err"] = 0.0
 
 
@@ -308,12 +484,18 @@ def phase_lk(summary):
             dpts = float((gk - gp).abs().max(dim=1).values[both].max())
             derr = float((ek - ep).abs()[both].max())
             n_diff = int((okk != okp).sum())
-            ms = cuda_ms(lambda: kernels.lk_level(*args))
-            pms = cuda_ms(lambda: KLT._track_level(*args))
+            if (h, w, win) == (480, 640, 21):
+                t = _times(summary, "lk_level",
+                           lambda reps=1: kernels.lk_level(*args, reps=reps),
+                           lambda: KLT._track_level(*args),
+                           8 * h * w + LK_N * 29,
+                           LK_N * lk_point_level_ops(win, 10))
+            else:
+                ms = cuda_ms(lambda: kernels.lk_level(*args))
+                t = f"kernel {ms:.4f} ms with its launcher"
             print(f"[K3] lk_level {h}x{w} win {win}: {int(both.sum())} of "
                   f"{LK_N} ok in both, ok differs on {n_diff}, max |dpts| "
-                  f"{dpts:.3e} px, max |derr| {derr:.3e}, kernel {ms:.4f} ms,"
-                  f" plain {pms:.4f} ms")
+                  f"{dpts:.3e} px, max |derr| {derr:.3e}, {t}")
             if not (dpts <= LK_TOL_PX and derr <= LK_TOL_ERR
                     and n_diff <= LK_TOL_OK * LK_N):
                 raise AssertionError(
@@ -321,10 +503,102 @@ def phase_lk(summary):
             if int(both.sum()) < LK_N // 2:
                 raise AssertionError(f"lk_level tracked too few points at "
                                      f"{h}x{w} win {win}")
-            if (h, w, win) == (480, 640, 21):
-                summary["lk_level"].update(ms=ms, plain_ms=pms)
             worst = max(worst, dpts)
     summary["lk_level"]["max_abs_err"] = worst
+
+
+LK_STREAM_LEVELS = (3, 4)    # the OF stage's 3D-prior and 2D streams
+
+
+def phase_lk_fused(summary):
+    """The fused K3 at the OF stage's shapes against fb_klt_track per
+    stream: the first stream starts from guesses up to 3 px off, the second
+    at the points themselves (the true motion is (3, -2) px)."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(4)
+    prev, nxt, pts, guess = _lk_inputs(480, 640, rs, dev)
+    pyr_p = KLT.build_lk_pyramid(prev, 4)
+    pyr_n = KLT.build_lk_pyramid(nxt, 4)
+    kw = dict(fb_thresh=0.5, fb_levels=1, win=21, iters=10, min_eig=1e-4)
+    guesses = [guess, None]
+
+    def fused(reps=1):
+        return kernels.lk_pyramid(
+            pyr_p, pyr_n, torch.stack([pts, pts]), torch.stack([guess, pts]),
+            LK_STREAM_LEVELS, 1, 2.0, 0.5, 21, 10, 1e-4, reps=reps)
+
+    def plain():
+        return [KLT.fb_klt_track(pyr_p, pyr_n, pts, g, max_levels=lv,
+                                 level_fn=KLT._track_level, **kw)
+                for g, lv in zip(guesses, LK_STREAM_LEVELS)]
+
+    n0 = dict(kernels.launch_counts)
+    got = KLT.fb_klt_track_streams(pyr_p, pyr_n, pts, guesses,
+                                   list(LK_STREAM_LEVELS), **kw)
+    if (kernels.launch_counts["lk_pyramid"] - n0["lk_pyramid"] != 1
+            or kernels.launch_counts["lk_level"] != n0["lk_level"]):
+        raise AssertionError("fb_klt_track_streams on the card did not go "
+                             "through one lk_pyramid launch")
+    want = plain()
+    torch.cuda.synchronize()
+    if kernels.launch_counts["lk_level"] != n0["lk_level"]:
+        raise AssertionError("the plain version launched the per-level kernel")
+    worst = 0.0
+    for s, (k, p) in enumerate(zip(got, want)):
+        both = k.status & p.status
+        dpts = float((k.pts - p.pts).abs().max(dim=1).values[both].max())
+        derr = float((k.err - p.err).abs()[both].max())
+        n_diff = int((k.status != p.status).sum())
+        print(f"[K3f] lk_pyramid stream {s} ({LK_STREAM_LEVELS[s]} + 1 "
+              f"levels): {int(both.sum())} of {LK_N} tracked in both, status "
+              f"differs on {n_diff}, max |dpts| {dpts:.3e} px, max |derr| "
+              f"{derr:.3e}")
+        if not (dpts <= LK_TOL_PX and derr <= LK_TOL_ERR
+                and n_diff <= LK_TOL_OK * LK_N):
+            raise AssertionError(f"lk_pyramid differs from plain on stream "
+                                 f"{s}")
+        if int(both.sum()) < LK_N // 2:
+            raise AssertionError(f"lk_pyramid tracked too few points on "
+                                 f"stream {s}")
+        worst = max(worst, dpts)
+    point_levels = LK_N * sum(lv + 1 for lv in LK_STREAM_LEVELS)
+    pyr_bytes = 2 * 4 * sum(x.numel() for x in pyr_p)
+    t = _times(summary, "lk_pyramid", fused, plain,
+               pyr_bytes + 2 * LK_N * 29,
+               point_levels * lk_point_level_ops(21, 10))
+    print(f"[K3f] lk_pyramid 2 x {LK_N} points, {point_levels} point-levels:"
+          f" {t}")
+    summary["lk_pyramid"]["max_abs_err"] = worst
+
+
+def phase_entry_points(summary):
+    """The per-level kernels no longer run on any path; their public entries
+    (fast_scores_two, klt_track) still launch them on the card. Driven here
+    at full width and counted under a key of their own,
+    `entry_point_launches`: `launches` and `launches_per_frame` hold only
+    what the four paths counted, which is 0 for these two."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(5)
+    prev, nxt, pts, guess = _lk_inputs(480, 640, rs, dev)
+    kernels.reset_launch_counts()
+    for lv_img in build_pyramid(prev, 8, 1.2):
+        lo, hi = FAST.fast_scores_two(lv_img, 7.0, 20.0)
+    res = KLT.klt_track(KLT.build_lk_pyramid(prev, 4),
+                        KLT.build_lk_pyramid(nxt, 4), pts, guess)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    moved = (res.pts - pts)[res.status].median(dim=0).values
+    print(f"[entry] fast_scores_two on 8 levels and klt_track over 4: "
+          f"{int(res.status.sum())} of {LK_N} points tracked, median motion "
+          f"({float(moved[0]):.3f}, {float(moved[1]):.3f}) px; launches "
+          f"{launches}")
+    if (launches["fast_scores"] != 8 or launches["lk_level"] != 4
+            or not torch.isfinite(lo).all() or not torch.isfinite(hi).all()
+            or float((moved - torch.tensor([3.0, -2.0], device=dev)).abs()
+                     .max()) > 0.05):
+        raise AssertionError("the per-level entry points failed")
+    for name in ("fast_scores", "lk_level"):
+        summary[name]["entry_point_launches"] = launches[name]
 
 
 def run_path(tag, cfg, fps, summary, expect):
@@ -383,13 +657,13 @@ def run_path(tag, cfg, fps, summary, expect):
         raise AssertionError(f"ATE {ate['ate_rmse']} m >= 5 cm")
     if not rp["rpe_trans"] < 0.03:
         raise AssertionError(f"RPE {rp['rpe_trans']} m >= 3 cm")
-    _count(summary, tag, launches, expect)
+    _count(summary, tag, launches, N_FRAMES, expect)
     return slam
 
 
 def phase_rgbd(summary):
     run_path("rgbd", SystemConfig(), FPS, summary,
-             ("fast_scores", "gated_hamming_search"))
+             {"gated_hamming_search": None})
 
 
 def phase_of_icp(summary):
@@ -397,8 +671,10 @@ def phase_of_icp(summary):
     cfg = dataclasses.replace(
         base, use_of=True, use_icp=True,
         frame=dataclasses.replace(base.frame, n_of_slots=256))
+    # the optical-flow stage runs on every frame that has a predecessor
     slam = run_path("of_icp", cfg, OF_FPS, summary,
-                    ("fast_scores", "gated_hamming_search", "lk_level"))
+                    {"gated_hamming_search": None,
+                     "lk_pyramid": N_FRAMES - 1})
     n3d, n2d = slam.of_appended
     n_icp = slam.n_icp_accepted
     print(f"[of_icp] OF appended {n3d} 3D-stream and {n2d} 2D-stream points;"
@@ -417,8 +693,8 @@ def _room(cfg, fps):
 
 
 def _vocabulary():
-    """The shipped vocabulary (k = 10, 4 levels), read as data from
-    geoflowslam_tpu/assets/vocab_default.npz."""
+    """The shipped vocabulary (k = 10, 4 levels), the port's own asset
+    geoflowslam_tpu_torch/assets/vocab_default.npz."""
     t0 = time.perf_counter()
     voc = V.default_vocabulary("cuda")
     print(f"[vocab] shipped vocabulary, k {voc.k}, {voc.levels} levels, "
@@ -445,13 +721,20 @@ def _timed(slam, attr, log):
     setattr(slam, attr, wrapped)
 
 
-def _count(summary, tag, launches, expect):
-    print(f"[{tag}] kernel launches: {launches}")
-    for name in expect:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched in {tag}")
+def _count(summary, tag, launches, n_frames, expect):
+    """Hold a path's launch counts to `expect` (kernel -> exact count, or
+    None for at least one): the fused K1 once per frame on every path, the
+    per-level K1 and K3 never, any kernel not named not at all."""
+    print(f"[{tag}] {n_frames} frames, kernel launches: {launches}")
+    expect = {"fast_nms_levels": n_frames, **expect}
     for name, n in launches.items():
-        summary[name]["launches"] = summary[name].get("launches", 0) + n
+        want = expect.get(name, 0)
+        if (n <= 0) if want is None else (n != want):
+            raise AssertionError(
+                f"{tag} launched {name} {n} times over {n_frames} frames, "
+                f"expected {'at least once' if want is None else want}")
+        summary[name]["launches"] += n
+        summary[name]["launches_per_frame"][tag] = n / n_frames
 
 
 def _tilted(seq, t, pitch):
@@ -496,9 +779,11 @@ def phase_reloc(summary, voc):
     if st["state"] != "OK":
         raise AssertionError(f"reloc first pass ended {st['state']}")
     blank, bdepth = _blank(cfg)
+    n_blank = 0
     for _ in range(6):
         slam.track_rgbd(blank, bdepth, t)
         t += 0.1
+        n_blank += 1
         if slam.state.name == "RECENTLY_LOST":
             break
     if slam.state.name != "RECENTLY_LOST":
@@ -535,7 +820,9 @@ def phase_reloc(summary, voc):
           f"{[round(x, 2) for x in attempts]}")
     if st["state"] != "OK" or st["n_maps"] != 1 or not err < 0.1:
         raise AssertionError(f"reloc end state {st}, error {err} m")
-    _count(summary, "reloc", launches, ("hamming_best2",))
+    # first pass, tilt, blank, noisy and clean frames
+    _count(summary, "reloc", launches, 20 + 16 + n_blank + n_noisy + 3,
+           {"hamming_best2": None, "gated_hamming_search": None})
     # the same relocalization called directly on the lost system's map (after
     # the path's counts were read): the first pass's pose at that view,
     # timed over 5 attempts after one warm-up
@@ -582,9 +869,11 @@ def phase_merge(summary, voc):
         raise AssertionError(f"merge phase A: {st}")
     blank, bdepth = _blank(cfg)
     t = n_a / RECOVER_FPS
+    n_blank = 0
     for _ in range(10):
         slam.track_rgbd(blank, bdepth, t)
         t += 0.1
+        n_blank += 1
         if slam.map_stats()["n_maps"] >= 2:
             break
     st = slam.map_stats()
@@ -619,12 +908,13 @@ def phase_merge(summary, voc):
     if st["state"] != "OK" or not events or not share >= 0.9:
         raise AssertionError(f"merge failed: {st}, {len(events)} "
                              f"loop/merge events, KF share {share}")
-    _count(summary, "merge", launches, ("hamming_best2",
-                                        "gated_hamming_search"))
+    _count(summary, "merge", launches, n_a + n_blank + len(frame_ms),
+           {"hamming_best2": None, "gated_hamming_search": None})
 
 
 def new_summary():
-    return {k: dict(name=k, route="cuda", **v)
+    return {k: dict(name=k, route="cuda", launches=0, launches_per_frame={},
+                    entry_point_launches=0, **v)
             for k, v in KERNEL_INFO.items()}
 
 
@@ -636,17 +926,23 @@ def main() -> int:
     summary = new_summary()
     phase_build()
     phase_fast(summary)
+    phase_fast_fused(summary)
     phase_hamming(summary)
     phase_hamming_best2(summary)
     phase_lk(summary)
+    phase_lk_fused(summary)
+    phase_entry_points(summary)
     phase_rgbd(summary)
     phase_of_icp(summary)
     voc = _vocabulary()
     phase_reloc(summary, voc)
     phase_merge(summary, voc)
     print(json.dumps({"kernels": [
-        {k: s[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms")}
+        {k: s[k] for k in ("name", "route", "source", "replaces", "launches",
+                           "launches_per_frame", "entry_point_launches",
+                           "max_abs_err", "ms",
+                           "device_ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
         for s in summary.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

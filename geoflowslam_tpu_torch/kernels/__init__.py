@@ -8,9 +8,11 @@ imported; the CPU tests import it on machines without nvcc.
 
 Each launcher takes CUDA tensors only, checks device, dtype, shape and
 contiguity, launches on PyTorch's current stream without synchronising,
-raises if the launch is refused, and adds one to its entry of
-`launch_counts`. Dispatch between a kernel and its plain PyTorch version
-happens in the ops modules (ops/fast.py, ops/matching.py, ops/klt.py), by
+raises if the launch is refused, and adds the launches it made to its
+entry of `launch_counts`: one, unless `reps` > 1, which launches the kernel
+that many times back to back into the same outputs (same result; it lets a
+caller time the kernel alone, without this module's Python). Dispatch
+between a kernel and its plain PyTorch version happens in the ops modules (ops/fast.py, ops/matching.py, ops/klt.py), by
 the device of the input tensor.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -35,7 +37,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"fast_scores": 0, "gated_hamming_search": 0, "lk_level": 0,
+launch_counts = {"fast_scores": 0, "fast_nms_levels": 0,
+                 "gated_hamming_search": 0, "lk_level": 0, "lk_pyramid": 0,
                  "hamming_best2": 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -96,15 +99,21 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.gfs_fast_scores.argtypes = [p, p, p, i, i, f, f, p]
-            lib.gfs_fast_scores.restype = i
-            lib.gfs_gated_hamming.argtypes = [p] * 9 + [i] * 5 + [p] * 4
-            lib.gfs_gated_hamming.restype = i
+            # every entry ends in (reps, stream)
+            lib.gfs_fast_scores.argtypes = [p, p, p, i, i, f, f, i, p]
+            lib.gfs_fast_nms_levels.argtypes = [p, p, p, i, p, f, f, i, i, p]
+            lib.gfs_gated_hamming.argtypes = ([p] * 9 + [i] * 5 + [p] * 3
+                                              + [i, p])
             lib.gfs_lk_level.argtypes = [p, p, i, i, p, p, i, i, i, f, p, p,
-                                         p, p]
-            lib.gfs_lk_level.restype = i
-            lib.gfs_hamming_best2.argtypes = [p] * 4 + [i] * 3 + [p] * 4
-            lib.gfs_hamming_best2.restype = i
+                                         p, i, p]
+            lib.gfs_lk_pyramid.argtypes = [p] * 5 + [i, p, i, p, p, i, i, f, f,
+                                                     i, i, f, p, p, p, i, p]
+            lib.gfs_hamming_best2.argtypes = ([p] * 4 + [i] * 3 + [p] * 3
+                                              + [i, p])
+            for fn in (lib.gfs_fast_scores, lib.gfs_fast_nms_levels,
+                       lib.gfs_gated_hamming, lib.gfs_lk_level,
+                       lib.gfs_lk_pyramid, lib.gfs_hamming_best2):
+                fn.restype = i
             _lib = lib
     return _lib
 
@@ -126,7 +135,8 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def fast_scores(img: torch.Tensor, th_lo: float, th_hi: float):
+def fast_scores(img: torch.Tensor, th_lo: float, th_hi: float,
+                reps: int = 1):
     """FAST-9 responses of img [H, W] float32 at two thresholds (kernel
     csrc/fast_scores.cu). Returns (score_lo, score_hi), each [H, W]."""
     h, w = img.shape
@@ -137,15 +147,65 @@ def fast_scores(img: torch.Tensor, th_lo: float, th_hi: float):
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.gfs_fast_scores(img.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                                  h, w, float(th_lo), float(th_hi), stream)
+                                  h, w, float(th_lo), float(th_hi), int(reps),
+                                  stream)
     _raise_on(err, "fast_scores")
-    launch_counts["fast_scores"] += 1
+    launch_counts["fast_scores"] += int(reps)
     return lo, hi
+
+
+FAST_MAX_LEVELS = 16    # levels the fused kernel's parameter table holds
+
+
+def fast_nms_levels(levels: Sequence[torch.Tensor], th_lo: float,
+                    th_hi: float, border: int, reps: int = 1):
+    """FAST-9 at two thresholds with 3x3 non-maximum suppression and the
+    border mask, for all pyramid levels in one launch (kernel
+    csrc/fast_scores.cu::fast_nms_levels_kernel).
+
+    levels: [h_l, w_l] float32 images. Returns a list of (score_lo,
+    score_hi) per level, each [h_l, w_l]: views of one flat buffer."""
+    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
+        raise ValueError(f"fast_nms_levels: {len(levels)} levels, expected 1 "
+                         f"to {FAST_MAX_LEVELS}")
+    if border < 0:
+        raise ValueError(f"fast_nms_levels: border {border} must be >= 0")
+    for lvl, img in enumerate(levels):
+        if img.dim() != 2 or img.numel() == 0:
+            raise ValueError(f"fast_nms_levels: level {lvl} has shape "
+                             f"{tuple(img.shape)}, expected a non-empty "
+                             "[H, W]")
+        _check(f"levels[{lvl}]", img, torch.float32, img.shape)
+        if img.device != levels[0].device:
+            raise ValueError("fast_nms_levels: levels on different devices")
+    dev = levels[0].device
+    n = len(levels)
+    hs = [int(img.shape[0]) for img in levels]
+    ws = [int(img.shape[1]) for img in levels]
+    out = torch.empty((2 * sum(h * w for h, w in zip(hs, ws)),),
+                      dtype=torch.float32, device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gfs_fast_nms_levels(
+            (ctypes.c_void_p * n)(*(img.data_ptr() for img in levels)),
+            (ctypes.c_int * n)(*hs), (ctypes.c_int * n)(*ws), n,
+            out.data_ptr(), float(th_lo), float(th_hi), int(border),
+            int(reps), stream)
+    _raise_on(err, "fast_nms_levels")
+    launch_counts["fast_nms_levels"] += int(reps)
+    # level l's [2, h, w] pair as two views (few host calls: split, view,
+    # unbind)
+    chunks = out.split([2 * h * w for h, w in zip(hs, ws)])
+    maps = [tuple(c.view(2, h, w).unbind(0))
+            for c, h, w in zip(chunks, hs, ws)]
+    return maps
 
 
 def gated_hamming_search(q_uv, q_level, q_valid, q_desc, q_radius,
                          t_uv, t_level, t_valid, t_desc,
-                         min_off: int, max_off: int, big: int):
+                         min_off: int, max_off: int, big: int,
+                         reps: int = 1):
     """Gated best/second Hamming search (kernel csrc/gated_hamming.cu).
 
     q_*: uv [N,2] f32, level [N] i32, valid [N] bool, desc [N,8] i32 (the
@@ -176,9 +236,10 @@ def gated_hamming_search(q_uv, q_level, q_valid, q_desc, q_radius,
             q_desc.data_ptr(), q_radius.data_ptr(), t_uv.data_ptr(),
             t_level.data_ptr(), t_valid.data_ptr(), t_desc.data_ptr(),
             n, m, int(min_off), int(max_off), int(big),
-            best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+            best.data_ptr(), second.data_ptr(), idx.data_ptr(), int(reps),
+            stream)
     _raise_on(err, "gated_hamming_search")
-    launch_counts["gated_hamming_search"] += 1
+    launch_counts["gated_hamming_search"] += int(reps)
     return best, second, idx
 
 
@@ -189,7 +250,7 @@ LK_SMEM_MAX = 232448
 
 def lk_level(img_prev: torch.Tensor, img_next: torch.Tensor,
              pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int,
-             min_eig: float):
+             min_eig: float, reps: int = 1):
     """One pyramid level of Lucas-Kanade (kernel csrc/lk_level.cu).
 
     img_prev, img_next: [H, W] f32; pts, guess: [N, 2] f32 (x, y) in level
@@ -217,14 +278,90 @@ def lk_level(img_prev: torch.Tensor, img_next: torch.Tensor,
         code = lib.gfs_lk_level(
             img_prev.data_ptr(), img_next.data_ptr(), h, w, pts.data_ptr(),
             guess.data_ptr(), n, int(win), int(iters), float(min_eig),
-            out.data_ptr(), ok.data_ptr(), err.data_ptr(), stream)
+            out.data_ptr(), ok.data_ptr(), err.data_ptr(), int(reps), stream)
     _raise_on(code, "lk_level")
-    launch_counts["lk_level"] += 1
+    launch_counts["lk_level"] += int(reps)
     return out, ok, err
 
 
+LK_MAX_LEVELS = 8     # pyramid levels the fused kernel's parameter table holds
+LK_MAX_STREAMS = 4
+
+
+def lk_pyramid(pyr_prev: Sequence[torch.Tensor],
+               pyr_next: Sequence[torch.Tensor], pts: torch.Tensor,
+               guess: torch.Tensor, levels: Sequence[int], fb_levels: int,
+               scale_factor: float, fb_thresh: float, win: int, iters: int,
+               min_eig: float, reps: int = 1):
+    """Forward-backward pyramidal Lucas-Kanade for S streams in one launch
+    (kernel csrc/lk_level.cu::lk_pyramid_kernel).
+
+    pyr_prev, pyr_next: the two pyramids, [h_l, w_l] f32 per level; pts,
+    guess: [S, N, 2] f32 (x, y) in level-0 coordinates; levels[s]: forward
+    levels of stream s (its backward pass runs min(fb_levels, levels[s])).
+    Returns (pts_out [S, N, 2] f32, status [S, N] bool, err [S, N] f32)."""
+    n_lv = len(pyr_prev)
+    if len(pyr_next) != n_lv or not 1 <= n_lv <= LK_MAX_LEVELS:
+        raise ValueError(f"lk_pyramid: pyramids of {n_lv} and {len(pyr_next)} "
+                         f"levels, expected equal and 1 to {LK_MAX_LEVELS}")
+    if pts.dim() != 3:
+        raise ValueError(f"lk_pyramid: pts has shape {tuple(pts.shape)}, "
+                         "expected [S, N, 2]")
+    s, n = int(pts.shape[0]), int(pts.shape[1])
+    _check("pts", pts, torch.float32, (s, n, 2))
+    _check("guess", guess, torch.float32, (s, n, 2))
+    for lvl, (a, b) in enumerate(zip(pyr_prev, pyr_next)):
+        if a.dim() != 2 or a.numel() == 0:
+            raise ValueError(f"lk_pyramid: level {lvl} has shape "
+                             f"{tuple(a.shape)}, expected a non-empty [H, W]")
+        _check(f"pyr_prev[{lvl}]", a, torch.float32, a.shape)
+        _check(f"pyr_next[{lvl}]", b, torch.float32, a.shape)
+        if a.device != pts.device or b.device != pts.device:
+            raise ValueError("lk_pyramid: tensors on different devices")
+    levels = [int(v) for v in levels]
+    if not 1 <= s <= LK_MAX_STREAMS or len(levels) != s:
+        raise ValueError(f"lk_pyramid: {s} streams with {len(levels)} level "
+                         f"counts, expected 1 to {LK_MAX_STREAMS} of each")
+    if any(not 1 <= v <= n_lv for v in levels) or fb_levels < 1:
+        raise ValueError(f"lk_pyramid: levels {levels} and fb_levels "
+                         f"{fb_levels} must lie in 1..{n_lv} and be >= 1")
+    if win < 1 or iters < 0:
+        raise ValueError(f"lk_pyramid: win {win} and iters {iters} must be "
+                         ">= 1 and >= 0")
+    if (win + 2) ** 2 * 4 > LK_SMEM_MAX:
+        raise ValueError(f"lk_pyramid: win {win} does not fit in shared "
+                         "memory")
+    dev = pts.device
+    out = torch.empty((s, n, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((s, n), dtype=torch.bool, device=dev)
+    err = torch.empty((s, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out, status, err
+    lib = load()
+    ptrs = ctypes.c_void_p * n_lv
+    ints = ctypes.c_int * n_lv
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gfs_lk_pyramid(
+            ptrs(*(a.data_ptr() for a in pyr_prev)),
+            ptrs(*(b.data_ptr() for b in pyr_next)),
+            ints(*(int(a.shape[0]) for a in pyr_prev)),
+            ints(*(int(a.shape[1]) for a in pyr_prev)),
+            (ctypes.c_float * n_lv)(*(1.0 / scale_factor ** lvl
+                                      for lvl in range(n_lv))),
+            n_lv, (ctypes.c_int * s)(*levels), s, pts.data_ptr(),
+            guess.data_ptr(), n, int(fb_levels), float(scale_factor),
+            float(fb_thresh), int(win), int(iters), float(min_eig),
+            out.data_ptr(), status.data_ptr(), err.data_ptr(), int(reps),
+            stream)
+    _raise_on(code, "lk_pyramid")
+    launch_counts["lk_pyramid"] += int(reps)
+    return out, status, err
+
+
 def hamming_best2(q_desc: torch.Tensor, q_valid: torch.Tensor,
-                  t_desc: torch.Tensor, t_valid: torch.Tensor, big: int):
+                  t_desc: torch.Tensor, t_valid: torch.Tensor, big: int,
+                  reps: int = 1):
     """Ungated best/second Hamming search (kernel csrc/hamming_best2.cu).
 
     q_desc [N,8] i32 (the 256 descriptor bits), q_valid [N] bool; t_desc
@@ -248,7 +385,7 @@ def hamming_best2(q_desc: torch.Tensor, q_valid: torch.Tensor,
         err = lib.gfs_hamming_best2(
             q_desc.data_ptr(), q_valid.data_ptr(), t_desc.data_ptr(),
             t_valid.data_ptr(), n, m, int(big), best.data_ptr(),
-            second.data_ptr(), idx.data_ptr(), stream)
+            second.data_ptr(), idx.data_ptr(), int(reps), stream)
     _raise_on(err, "hamming_best2")
-    launch_counts["hamming_best2"] += 1
+    launch_counts["hamming_best2"] += int(reps)
     return best, second, idx

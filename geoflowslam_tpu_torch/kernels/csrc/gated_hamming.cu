@@ -133,7 +133,8 @@ __global__ void gated_hamming_kernel(
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launches `reps` times back to back on `stream` (1 on every path; more only
+// to time the kernel); returns the cudaError_t of the launch (0 = success).
 extern "C" int gfs_gated_hamming(const float* q_uv, const int* q_level,
                                  const uint8_t* q_valid,
                                  const uint32_t* q_desc, const float* q_radius,
@@ -142,11 +143,12 @@ extern "C" int gfs_gated_hamming(const float* q_uv, const int* q_level,
                                  const uint32_t* t_desc, int n, int m,
                                  int min_off, int max_off, int big,
                                  int* out_best, int* out_second, int* out_idx,
-                                 cudaStream_t stream) {
+                                 int reps, cudaStream_t stream) {
   const dim3 block(32 * kWarps);
   const dim3 grid((n + kWarps - 1) / kWarps);
-  gated_hamming_kernel<<<grid, block, 0, stream>>>(
-      q_uv, q_level, q_valid, q_desc, q_radius, t_uv, t_level, t_valid,
-      t_desc, n, m, min_off, max_off, big, out_best, out_second, out_idx);
+  for (int rep = 0; rep < reps; ++rep)
+    gated_hamming_kernel<<<grid, block, 0, stream>>>(
+        q_uv, q_level, q_valid, q_desc, q_radius, t_uv, t_level, t_valid,
+        t_desc, n, m, min_off, max_off, big, out_best, out_second, out_idx);
   return static_cast<int>(cudaGetLastError());
 }

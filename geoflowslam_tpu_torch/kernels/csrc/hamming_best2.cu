@@ -117,17 +117,20 @@ __global__ void hamming_best2_kernel(const uint32_t* __restrict__ q_desc,
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launches `reps` times back to back on `stream` (1 on every path; more only
+// to time the kernel); returns the cudaError_t of the launch (0 = success).
 extern "C" int gfs_hamming_best2(const uint32_t* q_desc,
                                  const uint8_t* q_valid,
                                  const uint32_t* t_desc,
                                  const uint8_t* t_valid, int n, int m,
                                  int big, int* out_best, int* out_second,
-                                 int* out_idx, cudaStream_t stream) {
+                                 int* out_idx, int reps,
+                                 cudaStream_t stream) {
   const dim3 block(32 * kWarps);
   const dim3 grid((n + kWarps - 1) / kWarps);
-  hamming_best2_kernel<<<grid, block, 0, stream>>>(
-      q_desc, q_valid, t_desc, t_valid, n, m, big, out_best, out_second,
-      out_idx);
+  for (int rep = 0; rep < reps; ++rep)
+    hamming_best2_kernel<<<grid, block, 0, stream>>>(
+        q_desc, q_valid, t_desc, t_valid, n, m, big, out_best, out_second,
+        out_idx);
   return static_cast<int>(cudaGetLastError());
 }

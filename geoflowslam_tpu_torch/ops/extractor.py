@@ -31,14 +31,16 @@ class FeatureSet(NamedTuple):
 def extract(img: torch.Tensor, cfg: OrbConfig) -> FeatureSet:
     """img: [H, W] float32 grayscale in [0, 255] -> FeatureSet[n_features]."""
     levels = pyr_ops.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+    # both thresholds' maps of every level, finished: one kernel launch
+    maps = fast_ops.fast_nms_levels(levels, cfg.min_th_fast, cfg.ini_th_fast)
     uvs, resps, angles, lvls, descs, valids = [], [], [], [], [], []
-    for lvl, (lv_img, quota, scale) in enumerate(
-            zip(levels, cfg.per_level_quota(), cfg.scale_factors())):
+    for lvl, (lv_img, (s_low, s_high), quota, scale) in enumerate(
+            zip(levels, maps, cfg.per_level_quota(), cfg.scale_factors())):
         if quota == 0:
             continue
-        kp = fast_ops.detect_level(
-            lv_img, quota, cfg.ini_th_fast, cfg.min_th_fast,
-            cell_size=cfg.cell_size, per_cell_cap=cfg.per_cell_cap)
+        kp = fast_ops.detect_level(s_low, s_high, quota,
+                                   cell_size=cfg.cell_size,
+                                   per_cell_cap=cfg.per_cell_cap)
         ang, d = orb_ops.orient_and_describe(lv_img, kp.xy)
         uvs.append(kp.xy * scale)
         resps.append(kp.score)

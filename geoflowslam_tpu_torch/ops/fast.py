@@ -4,12 +4,16 @@ geoflowslam_tpu/ops/fast.py).
 `fast_score_maps` is the plain PyTorch version of the two-threshold FAST-9
 stencil; `fast_scores_two` dispatches by device: CUDA tensors go to the
 hand-written kernel (kernels/csrc/fast_scores.cu), CPU tensors to the plain
-version. `detect_level` keeps the reference's per-cell top-k followed by a
-global top-k, with ties broken by the lowest index as XLA's top_k does.
+version. `fast_nms_levels` gives every pyramid level's two score maps after
+non-maximum suppression and the border mask: one launch of the fused kernel
+for CUDA tensors, `fast_nms_levels_plain` (the stencil, `nms3x3` and the
+mask per level) for CPU ones. `detect_level` takes a level's two finished
+maps and keeps the reference's per-cell top-k followed by a global top-k,
+with ties broken by the lowest index as XLA's top_k does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,30 +93,54 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= m, score, 0.0)
 
 
+def fast_nms_levels_plain(levels: Sequence[torch.Tensor], th_lo: float,
+                          th_hi: float, border: int = 16
+                          ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Plain version of the fused kernel: per level the (low, high)
+    threshold maps where(inside `border`, nms3x3(FAST score), 0)."""
+    out = []
+    for img in levels:
+        h, w = img.shape
+        ys = torch.arange(h, device=img.device)[:, None]
+        xs = torch.arange(w, device=img.device)[None, :]
+        inb = ((ys >= border) & (ys < h - border)
+               & (xs >= border) & (xs < w - border))
+        out.append(tuple(torch.where(inb, nms3x3(s), 0.0)
+                         for s in fast_score_maps(img, [th_lo, th_hi])))
+    return out
+
+
+def fast_nms_levels(levels: Sequence[torch.Tensor], th_lo: float,
+                    th_hi: float, border: int = 16
+                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Finished score maps of all pyramid levels: one launch of the fused
+    CUDA kernel for CUDA tensors (bit for bit equal to the plain version),
+    the plain version for CPU ones."""
+    dev = levels[0].device
+    if dev.type == "cuda":
+        return kernels.fast_nms_levels([img.contiguous() for img in levels],
+                                       th_lo, th_hi, border)
+    if dev.type != "cpu":
+        raise ValueError(f"fast_nms_levels: unsupported device {dev}")
+    return fast_nms_levels_plain(levels, th_lo, th_hi, border)
+
+
 class LevelKeypoints(NamedTuple):
     xy: torch.Tensor        # [N, 2] float32 (x, y) in level coords
     score: torch.Tensor     # [N]
     valid: torch.Tensor     # [N] bool
 
 
-def detect_level(img: torch.Tensor, n_keypoints: int, ini_threshold: float,
-                 min_threshold: float, cell_size: int = 32,
-                 per_cell_cap: int = 8, border: int = 16) -> LevelKeypoints:
-    """Up to n_keypoints FAST corners with spatial balancing: scores at both
-    thresholds, NMS, per-cell fallback to the low threshold where a cell has
-    no strong corner, per-cell top-`per_cell_cap`, then global top-n."""
-    h, w = img.shape
-    dev = img.device
-    s_low, s_high = fast_scores_two(img, min_threshold, ini_threshold)
-    score_low = nms3x3(s_low)
-    score_high = nms3x3(s_high)
-
-    ys = torch.arange(h, device=dev)[:, None]
-    xs = torch.arange(w, device=dev)[None, :]
-    inb = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
-    score_low = torch.where(inb, score_low, 0.0)
-    score_high = torch.where(inb, score_high, 0.0)
-
+def detect_level(score_low: torch.Tensor, score_high: torch.Tensor,
+                 n_keypoints: int, cell_size: int = 32,
+                 per_cell_cap: int = 8) -> LevelKeypoints:
+    """Up to n_keypoints FAST corners of one level with spatial balancing,
+    from its finished maps at the low and the high threshold (a level's pair
+    from fast_nms_levels): per-cell fallback to the low threshold where a
+    cell has no strong corner, per-cell top-`per_cell_cap`, then global
+    top-n."""
+    h, w = score_low.shape
+    dev = score_low.device
     ph = (h + cell_size - 1) // cell_size * cell_size
     pw = (w + cell_size - 1) // cell_size * cell_size
     sl = F.pad(score_low, (0, pw - w, 0, ph - h))

@@ -12,11 +12,14 @@ fail the in-image gate, but their Gauss-Newton path is the reference's.
 `track_level` dispatches by device: a CUDA tensor goes to the hand-written
 kernel (kernels/csrc/lk_level.cu), a CPU tensor to the plain version. The
 kernel takes every level size and every window that fits in shared
-memory.
+memory. `fb_klt_track_streams` runs several forward-backward tracks of the
+same points (each with its own guess and level count) at once: one launch
+of the fused kernel for CUDA tensors, one `fb_klt_track` per stream, its
+plain version, for CPU ones.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -136,9 +139,16 @@ def klt_track(pyr_prev: List[torch.Tensor], pyr_next: List[torch.Tensor],
               init_guess: Optional[torch.Tensor] = None,
               scale_factor: float = 2.0, win: int = 21, iters: int = 10,
               min_eig: float = 1e-4,
-              max_levels: Optional[int] = None) -> KLTResult:
+              max_levels: Optional[int] = None,
+              level_fn=None) -> KLTResult:
     """Track pts_prev (level-0 coords) from pyr_prev to pyr_next, coarse to
-    fine; `init_guess` (level-0 coords) seeds the search."""
+    fine; `init_guess` (level-0 coords) seeds the search. Each level goes
+    through `level_fn` (default: track_level, which dispatches by device).
+    `level_fn=_track_level` holds a CUDA tensor to the plain version: it is
+    for checks of a kernel against its plain version only, and no module of
+    this package passes it."""
+    if level_fn is None:
+        level_fn = track_level
     n_levels = (len(pyr_prev) if max_levels is None
                 else min(max_levels, len(pyr_prev)))
     if init_guess is None:
@@ -150,8 +160,8 @@ def klt_track(pyr_prev: List[torch.Tensor], pyr_next: List[torch.Tensor],
     err = torch.zeros(pts_prev.shape[0], device=pts_prev.device)
     for lvl in range(top, -1, -1):
         p_lvl = pts_prev * (1.0 / (scale_factor ** lvl))
-        g, ok, err = track_level(pyr_prev[lvl], pyr_next[lvl], p_lvl, g, win,
-                                 iters, min_eig)
+        g, ok, err = level_fn(pyr_prev[lvl], pyr_next[lvl], p_lvl, g, win,
+                              iters, min_eig)
         ok_all = ok_all & ok
         if lvl > 0:
             g = g * scale_factor
@@ -170,6 +180,42 @@ def fb_klt_track(pyr_prev, pyr_next, pts_prev, init_guess=None,
     fb_err = torch.linalg.norm(bwd.pts - pts_prev, dim=1)
     status = fwd.status & bwd.status & (fb_err < fb_thresh)
     return KLTResult(pts=fwd.pts, status=status, err=fwd.err)
+
+
+def fb_klt_track_streams(pyr_prev, pyr_next, pts_prev: torch.Tensor,
+                         init_guesses: Sequence[Optional[torch.Tensor]],
+                         max_levels: Sequence[Optional[int]],
+                         fb_thresh: float = 1.0, fb_levels: int = 1,
+                         scale_factor: float = 2.0, win: int = 21,
+                         iters: int = 10,
+                         min_eig: float = 1e-4) -> List[KLTResult]:
+    """fb_klt_track of pts_prev for several streams: stream s starts at
+    init_guesses[s] (None: at pts_prev) and runs max_levels[s] levels (None:
+    the whole pyramid). One launch of the fused CUDA kernel for CUDA tensors,
+    one fb_klt_track per stream for CPU ones."""
+    if len(init_guesses) != len(max_levels):
+        raise ValueError("fb_klt_track_streams: one guess and one level "
+                         "count per stream")
+    levels = [len(pyr_prev) if m is None else min(m, len(pyr_prev))
+              for m in max_levels]
+    dev = pts_prev.device
+    if dev.type == "cuda":
+        used = max(levels)
+        guess = torch.stack([pts_prev if g is None else g
+                             for g in init_guesses])
+        pts = pts_prev.expand(len(levels), -1, -1).contiguous()
+        out, status, err = kernels.lk_pyramid(
+            [x.contiguous() for x in pyr_prev[:used]],
+            [x.contiguous() for x in pyr_next[:used]], pts, guess, levels,
+            fb_levels, scale_factor, fb_thresh, win, iters, min_eig)
+        return [KLTResult(pts=out[s], status=status[s], err=err[s])
+                for s in range(len(levels))]
+    if dev.type != "cpu":
+        raise ValueError(f"fb_klt_track_streams: unsupported device {dev}")
+    return [fb_klt_track(pyr_prev, pyr_next, pts_prev, g, fb_thresh=fb_thresh,
+                         fb_levels=fb_levels, scale_factor=scale_factor,
+                         win=win, iters=iters, min_eig=min_eig, max_levels=m)
+            for g, m in zip(init_guesses, levels)]
 
 
 def build_lk_pyramid(img: torch.Tensor, n_levels: int) -> List[torch.Tensor]:

@@ -12,8 +12,9 @@ of geoflowslam_tpu/pipeline/of_tracking.py).
   last frame's descriptors.
 
 Both streams are fixed-shape: the frame reserves `n_of_slots` padded slots
-that this stage fills. Every LK level goes through ops/klt.track_level, the
-hand-written kernel on the card.
+that this stage fills. Both streams' forward-backward tracks go through
+ops/klt.fb_klt_track_streams together: one launch of the hand-written fused
+kernel on the card.
 """
 from __future__ import annotations
 
@@ -75,8 +76,9 @@ def of_dual_stream(ms: M.MapState, last_frame: FrameData,
     mp_ok = has_mp & ms.mp_valid[mp_idx]
     uv_proj, _, in_img = _project(pred_rot, pred_t, ms.mp_pos[mp_idx], cfg)
     guess = torch.where((mp_ok & in_img)[:, None], uv_proj, lf.uv)
-    r3 = K.fb_klt_track(pyr_prev, pyr_next, lf.uv, guess, max_levels=lv3,
-                        **lk)
+    # both streams' LK (the 2D stream starts at the keypoints themselves)
+    r3, r2 = K.fb_klt_track_streams(pyr_prev, pyr_next, lf.uv, [guess, None],
+                                    [lv3, lv2], **lk)
     ok3 = r3.status & mp_ok & lf.valid
     sets3 = ransac._sample_minimal_sets(gen, ok3, ofcfg.f_ransac_hyp, 8,
                                         noise=noise3)
@@ -85,7 +87,6 @@ def of_dual_stream(ms: M.MapState, last_frame: FrameData,
     ok3 = ok3 & fres3.inliers
 
     # ----- 2D stream -------------------------------------------------------
-    r2 = K.fb_klt_track(pyr_prev, pyr_next, lf.uv, None, max_levels=lv2, **lk)
     ok2 = r2.status & lf.valid & ~ok3          # the 3D stream takes precedence
     sets2 = ransac._sample_minimal_sets(gen, ok2, ofcfg.f_ransac_hyp, 8,
                                         noise=noise2)

@@ -10,9 +10,9 @@ torch has no popcount: `hamming_batch` counts bits with a SWAR reduction on
 int64 words masked to 32 bits (an arithmetic right shift of a negative
 int32 would drag the sign bit in).
 
-The shipped vocabulary is read as data from the JAX package's asset
-(geoflowslam_tpu/assets/vocab_default.npz) by path with numpy; nothing of
-that package is imported. `build_vocabulary` is the reference's numpy
+The shipped vocabulary is the port's own asset
+(geoflowslam_tpu_torch/assets/vocab_default.npz, a byte-for-byte copy of the
+reference's), read with numpy. `build_vocabulary` is the reference's numpy
 hierarchical k-medians, for tests and for scenes the shipped vocabulary
 does not cover.
 """
@@ -24,8 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-DEFAULT_VOCAB_PATH = (Path(__file__).resolve().parents[2] / "geoflowslam_tpu"
-                      / "assets" / "vocab_default.npz")
+DEFAULT_VOCAB_PATH = (Path(__file__).resolve().parents[1] / "assets"
+                      / "vocab_default.npz")
 
 
 class Vocabulary(NamedTuple):

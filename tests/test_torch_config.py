@@ -1,5 +1,6 @@
 """The port's copies of the reference's configs and numpy-only modules stay
 equal to the originals, and the port imports no JAX."""
+import ast
 import dataclasses
 import re
 from pathlib import Path
@@ -84,10 +85,61 @@ def test_ate_copy_equal():
         ate_jax.associate(np.arange(5.0), np.arange(5.0) + 0.01)
 
 
+PORT_FILES = sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent /
+                                               "chip_smoke.py"]
+
+
 def test_port_imports_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|geoflowslam_tpu\b(?!_torch))",
                      re.M)
-    offenders = [str(p) for p in PORT_DIR.rglob("*.py")
-                 if pat.search(p.read_text())]
+    offenders = [str(p) for p in PORT_FILES if pat.search(p.read_text())]
     assert offenders == []
-    assert not pat.search((PORT_DIR.parent / "chip_smoke.py").read_text())
+
+
+def _reference_paths(path):
+    """String constants of a source file, docstrings left out, that name the
+    reference package's directory or a file in it. chip_smoke.py's
+    `replaces=` labels (file:line of the TPU kernel, never opened) do not
+    count."""
+    tree = ast.parse(path.read_text())
+    skip = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                skip.add(id(first.value))
+        if isinstance(node, ast.keyword) and node.arg == "replaces":
+            skip.add(id(node.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in skip
+            and re.search(r"geoflowslam_tpu(?!_torch)(/|$)", node.value)]
+
+
+def test_port_reads_no_file_of_the_reference():
+    """The port keeps its own copy of the one data file it needs, and no
+    code of it or of chip_smoke.py holds a path into the reference."""
+    asset = Path("assets") / "vocab_default.npz"
+    ours = PORT_DIR / asset
+    assert ours.read_bytes() == (PORT_DIR.parent / "geoflowslam_tpu"
+                                 / asset).read_bytes()
+    from geoflowslam_tpu_torch.retrieval import vocab
+    assert vocab.DEFAULT_VOCAB_PATH == ours
+    assert {str(p): _reference_paths(p) for p in PORT_FILES
+            if _reference_paths(p)} == {}
+    probe = PORT_DIR.parent / "tests" / "test_torch_config.py"
+    assert _reference_paths(probe)          # the scan does see such a path
+
+
+def test_port_passes_no_level_fn():
+    """klt_track's `level_fn` exists so that a check can hold CUDA tensors to
+    the plain level function; no module of the port may pass it."""
+    callers = [str(p) for p in sorted(PORT_DIR.rglob("*.py"))
+               for node in ast.walk(ast.parse(p.read_text()))
+               if isinstance(node, ast.keyword) and node.arg == "level_fn"]
+    assert callers == []
+    probe = ast.parse((PORT_DIR.parent / "chip_smoke.py").read_text())
+    assert any(isinstance(n, ast.keyword) and n.arg == "level_fn"
+               for n in ast.walk(probe))    # the scan does see such a call

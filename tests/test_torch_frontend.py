@@ -81,10 +81,11 @@ def test_detect_orient_describe(images):
     within 1e-5 rad, bit-equal descriptors."""
     g = np.asarray(JP.clahe(jnp.asarray(images[1][0])))
     levels = JP.build_pyramid(jnp.asarray(g), 4, 1.2)
-    for lvl, quota in zip(levels, JOrb(n_features=400, n_levels=4)
-                          .per_level_quota()):
+    maps = TF.fast_nms_levels([T(lvl) for lvl in levels], 7.0, 20.0)
+    for lvl, (s_low, s_high), quota in zip(
+            levels, maps, JOrb(n_features=400, n_levels=4).per_level_quota()):
         kj = JF.detect_level(lvl, quota, 20.0, 7.0)
-        kt = TF.detect_level(T(lvl), quota, 20.0, 7.0)
+        kt = TF.detect_level(s_low, s_high, quota)
         np.testing.assert_array_equal(np.asarray(kj.xy), kt.xy.numpy())
         np.testing.assert_array_equal(np.asarray(kj.score), kt.score.numpy())
         np.testing.assert_array_equal(np.asarray(kj.valid), kt.valid.numpy())

@@ -30,11 +30,8 @@ REPO = Path(__file__).resolve().parents[1]
 def _forbid_kernels(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a kernel launcher was called for CPU tensors")
-    monkeypatch.setattr(kernels, "fast_scores", boom)
-    monkeypatch.setattr(kernels, "gated_hamming_search", boom)
-    monkeypatch.setattr(kernels, "lk_level", boom)
-    monkeypatch.setattr(kernels, "hamming_best2", boom)
-    monkeypatch.setattr(kernels, "load", boom)
+    for name in list(kernels.launch_counts) + ["load"]:
+        monkeypatch.setattr(kernels, name, boom)
 
 
 def test_cpu_tensors_dispatch_to_plain(monkeypatch):
@@ -45,6 +42,10 @@ def test_cpu_tensors_dispatch_to_plain(monkeypatch):
     lo, hi = F.fast_scores_two(img, 7.0, 20.0)
     ref = F.fast_score_maps(img, [7.0, 20.0])
     assert torch.equal(lo, ref[0]) and torch.equal(hi, ref[1])
+    got = F.fast_nms_levels([img, img[:40, :50]], 7.0, 20.0)
+    want = F.fast_nms_levels_plain([img, img[:40, :50]], 7.0, 20.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     n, m = 50, 40
     args = (torch.from_numpy((rs.rand(n, 2) * 50).astype(np.float32)),
             torch.zeros(n, dtype=torch.int32), torch.ones(n, dtype=torch.bool),
@@ -64,20 +65,28 @@ def test_cpu_tensors_dispatch_to_plain(monkeypatch):
     want = KLT._track_level(img, img, pts, pts + 0.5, 21, 5, 1e-4)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    kw = dict(fb_thresh=0.5, win=9, iters=3)
+    r, = KLT.fb_klt_track_streams([img], [img], pts, [pts + 0.5], [1], **kw)
+    want = KLT.fb_klt_track([img], [img], pts, pts + 0.5, max_levels=1, **kw)
+    for a, b in zip(r, want):
+        assert torch.equal(a, b)
     dq, vq, dt, vt = (T(x) for x in _k4_inputs(40, 60, seed=1))
     got = MA.hamming_best2(dq, vq, dt, vt)
     want = MA.hamming_best2_plain(dq, vq, dt, vt)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     MA.match_descriptors(dq, vq, dt, vt, mutual=True)
-    assert kernels.launch_counts == {"fast_scores": 0,
-                                     "gated_hamming_search": 0,
-                                     "lk_level": 0, "hamming_best2": 0}
+    assert kernels.launch_counts == {
+        "fast_scores": 0, "fast_nms_levels": 0, "gated_hamming_search": 0,
+        "lk_level": 0, "lk_pyramid": 0, "hamming_best2": 0}
 
 
 def test_launchers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fast_scores(torch.zeros(8, 8), 7.0, 20.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fast_nms_levels([torch.zeros(8, 8), torch.zeros(7, 5)], 7.0,
+                                20.0, 16)
     z2, zi = torch.zeros(4, 2), torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gated_hamming_search(
@@ -91,6 +100,36 @@ def test_launchers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lk_level(torch.zeros(8, 8), torch.zeros(8, 8), z2, z2, 21, 10,
                          1e-4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lk_pyramid([torch.zeros(8, 8)], [torch.zeros(8, 8)],
+                           torch.zeros(2, 4, 2), torch.zeros(2, 4, 2), [1, 1],
+                           1, 2.0, 0.5, 21, 10, 1e-4)
+
+
+@pytest.mark.parametrize("bad", ["no_levels", "too_many_levels", "border",
+                                 "stream_levels", "pts_shape", "pyramids"])
+def test_fused_launchers_reject_bad_arguments(bad):
+    """Malformed level lists and stream tables raise before any build or
+    launch (no card is needed to see it)."""
+    img = torch.zeros(8, 8)
+    lk = dict(pyr_prev=[img], pyr_next=[img], pts=torch.zeros(2, 4, 2),
+              guess=torch.zeros(2, 4, 2), levels=[1, 1], fb_levels=1,
+              scale_factor=2.0, fb_thresh=0.5, win=21, iters=10,
+              min_eig=1e-4)
+    with pytest.raises(ValueError):
+        if bad == "no_levels":
+            kernels.fast_nms_levels([], 7.0, 20.0, 16)
+        elif bad == "too_many_levels":
+            kernels.fast_nms_levels([img] * (kernels.FAST_MAX_LEVELS + 1),
+                                    7.0, 20.0, 16)
+        elif bad == "border":
+            kernels.fast_nms_levels([img], 7.0, 20.0, -1)
+        elif bad == "stream_levels":
+            kernels.lk_pyramid(**dict(lk, levels=[1, 2]))
+        elif bad == "pts_shape":
+            kernels.lk_pyramid(**dict(lk, pts=torch.zeros(4, 2)))
+        else:
+            kernels.lk_pyramid(**dict(lk, pyr_next=[img, img]))
 
 
 def test_cuda_system_without_cuda_raises(monkeypatch):
@@ -108,6 +147,8 @@ def test_unported_options_raise():
 
 
 def test_sources_and_build_dir():
+    assert sorted(kernels.SOURCES) == sorted(
+        p.name for p in kernels.CSRC_DIR.glob("*.cu"))
     for src in kernels.SOURCES:
         text = (kernels.CSRC_DIR / src).read_text()
         assert "sm_90a" in text and 'extern "C"' in text

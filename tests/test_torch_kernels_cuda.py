@@ -8,11 +8,16 @@ import numpy as np
 import pytest
 import torch
 
+from geoflowslam_tpu_torch import config as C
 from geoflowslam_tpu_torch import kernels
+from geoflowslam_tpu_torch.ops import extractor as EX
 from geoflowslam_tpu_torch.ops import fast as F
 from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
-from geoflowslam_tpu_torch.ops.pyramid import pyramid_shapes
+from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
+from geoflowslam_tpu_torch.pipeline import of_tracking as OF
+from geoflowslam_tpu_torch.state import map_state as M
+from geoflowslam_tpu_torch.state.frame import build_frame
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +154,101 @@ def test_klt_track_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     monkeypatch.setattr(kernels, "lk_level", boom)
     with pytest.raises(RuntimeError, match="launcher reached"):
         KLT.klt_track([prev], [nxt], pts)
+
+
+@pytest.mark.parametrize("kind", ["random", "flat"])
+def test_fast_nms_levels_kernel_exact(cuda, kind):
+    """The fused K1 against its plain version, exact, on the 8-level x1.2
+    pyramid of 480x640 (odd widths included), a random image and one of flat
+    12 px blocks (NMS ties); then tiny and odd shapes with borders 0 and 2,
+    where the -inf outside the image and the 3 px zeros reach the result."""
+    rs = np.random.RandomState(2)
+    if kind == "random":
+        img = rs.rand(480, 640) * 255
+    else:
+        img = np.kron(rs.randint(0, 6, (41, 54)) * 50.0,
+                      np.ones((12, 12)))[:480, :640]
+    img = torch.from_numpy(img.astype(np.float32)).to(cuda)
+    cases = [(build_pyramid(img, 8, 1.2), 16)]
+    small = [img[:h, :w].contiguous() for h, w in ((7, 9), (33, 1), (40, 65))]
+    cases += [(small, 0), (small, 2), (small, 16)]
+    for levels, border in cases:
+        got = kernels.fast_nms_levels(levels, 7.0, 20.0, border)
+        want = F.fast_nms_levels_plain(levels, 7.0, 20.0, border)
+        for g, p in zip(got, want):
+            assert torch.equal(g[0], p[0]) and torch.equal(g[1], p[1])
+
+
+@pytest.mark.parametrize("levels,fb_levels,win", [((3, 4), 1, 21),
+                                                  ((1, 2), 2, 9),
+                                                  ((4,), 1, 31)])
+def test_lk_pyramid_kernel_matches_plain(cuda, levels, fb_levels, win):
+    """The fused K3 against fb_klt_track per stream: where both track,
+    points within 1e-3 px and err within 1e-4; status equal on >= 99.5%."""
+    prev, nxt, pts, guess = _lk_case(cuda, 480, 640, 1256, seed=win)
+    pyr_p = KLT.build_lk_pyramid(prev, 4)
+    pyr_n = KLT.build_lk_pyramid(nxt, 4)
+    kw = dict(fb_thresh=0.5, fb_levels=fb_levels, win=win, iters=10,
+              min_eig=1e-4)
+    guesses = [guess, None][:len(levels)]
+    kernels.reset_launch_counts()
+    got = KLT.fb_klt_track_streams(pyr_p, pyr_n, pts, guesses, list(levels),
+                                   **kw)
+    assert kernels.launch_counts["lk_pyramid"] == 1
+    for k, g, lv in zip(got, guesses, levels):
+        p = KLT.fb_klt_track(pyr_p, pyr_n, pts, g, max_levels=lv,
+                             level_fn=KLT._track_level, **kw)
+        both = k.status & p.status
+        assert int(both.sum()) > 300
+        assert int((k.status != p.status).sum()) <= 0.005 * len(both)
+        assert float((k.pts - p.pts).abs()[both].max()) <= 1e-3
+        assert float((k.err - p.err).abs()[both].max()) <= 1e-4
+        assert torch.isfinite(k.pts).all()
+    assert kernels.launch_counts["lk_level"] == 0   # nor did the plain one
+
+
+def test_extract_and_of_launch_each_fused_kernel_once(cuda, monkeypatch):
+    """extract() and of_dual_stream() on CUDA tensors launch the fused K1 and
+    the fused K3 exactly once, the per-level kernels never; with a launcher
+    made to raise, they raise (no way to the plain version)."""
+    rs = np.random.RandomState(9)
+    big = torch.from_numpy(rs.rand(34, 44).astype(np.float32) * 255)
+    tex = torch.nn.functional.interpolate(
+        big[None, None].to(cuda), size=(272, 352), mode="bicubic",
+        align_corners=False)[0, 0].clamp(0, 255)
+    g0 = tex[8:248, 8:328].contiguous()
+    g1 = tex[10:250, 5:325].contiguous()
+    depth = torch.full((240, 320), 2.0, device=cuda)
+    fcfg = C.FrameConfig(orb=C.OrbConfig(n_features=300, n_levels=4,
+                                         height=240, width=320),
+                         n_of_slots=64, lk_levels=3, cloud_stride=8,
+                         cloud_max_pts=512)
+    kernels.reset_launch_counts()
+    EX.extract(g0, fcfg.orb)
+    assert kernels.launch_counts["fast_nms_levels"] == 1
+    assert kernels.launch_counts["fast_scores"] == 0
+    f0 = build_frame(g0, depth, fcfg, 200.0, 200.0, 160.0, 120.0)
+    f1 = build_frame(g1, depth, fcfg, 200.0, 200.0, 160.0, 120.0)
+    tcfg = C.SystemConfig(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                          frame=fcfg).track_cfg()
+    ms = M.create(8, f0.feat.capacity, 512, cuda)
+    no_mp = torch.full((f0.feat.capacity,), M.NO_MP, dtype=torch.int32,
+                       device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    args = (ms, f0, f1, no_mp, torch.eye(3, device=cuda),
+            torch.zeros(3, device=cuda), gen, tcfg, OF.OFConfig(), 64)
+    kernels.reset_launch_counts()
+    _, _, n3d, n2d, _ = OF.of_dual_stream(*args)
+    assert kernels.launch_counts["lk_pyramid"] == 1
+    assert kernels.launch_counts["lk_level"] == 0
+    assert int(n3d) == 0 and int(n2d) > 0
+
+    def boom(*a, **k):
+        raise RuntimeError("fused launcher reached")
+    monkeypatch.setattr(kernels, "fast_nms_levels", boom)
+    monkeypatch.setattr(kernels, "lk_pyramid", boom)
+    with pytest.raises(RuntimeError, match="launcher reached"):
+        EX.extract(g0, fcfg.orb)
+    with pytest.raises(RuntimeError, match="launcher reached"):
+        OF.of_dual_stream(*args)

@@ -3,7 +3,10 @@ port runs its plain version: one pyramid level (`_track_level`) at 120x160
 and 60x80 with windows 21 and 31, including points off the image, points on
 a flat patch and points whose guess is off by up to 3 px; then the
 coarse-to-fine `klt_track` and the forward-backward `fb_klt_track` over a
-3-level pyramid. Inputs are made with numpy and handed to both packages.
+3-level pyramid, and the multi-stream entry `fb_klt_track_streams` (the
+optical-flow stage's two streams at once) against one `fb_klt_track` per
+stream, exact, and against the reference. Inputs are made with numpy and
+handed to both packages.
 
 Tolerances: where both say ok, tracked points within 1e-3 px and err within
 1e-3 (the samples are the same float32 operations; XLA and PyTorch sum the
@@ -162,3 +165,58 @@ def test_fb_klt_track_matches_reference(pyramids):
     tr = TK.fb_klt_track(tp, tn, torch.from_numpy(pts), None, **kw)
     both = _compare((jr.pts, jr.status, jr.err), tuple(tr))
     assert both.sum() > 0.8 * N_PTS
+
+
+# the optical-flow stage's two streams: fine levels from a guess, and the
+# whole pyramid (a level count past its depth is capped) from the points
+STREAMS = {"levels3_guess": (3, True), "levels4_noguess": (4, False)}
+FB_KW = dict(fb_thresh=0.5, win=21, iters=10, min_eig=1e-4)
+
+
+@pytest.fixture(scope="module")
+def streams(pyramids):
+    """Both streams through the multi-stream entry, in one call."""
+    _, _, tp, tn, pts = pyramids
+    guess = pts + 2.0 * SHIFT + 1.5
+    guesses = [torch.from_numpy(guess) if g else None
+               for _, g in STREAMS.values()]
+    res = TK.fb_klt_track_streams(tp, tn, torch.from_numpy(pts), guesses,
+                                  [lv for lv, _ in STREAMS.values()], **FB_KW)
+    return dict(zip(STREAMS, res)), guess
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_fb_klt_track_streams_equals_per_stream(pyramids, streams, name):
+    _, _, tp, tn, pts = pyramids
+    res, guess = streams
+    levels, with_guess = STREAMS[name]
+    want = TK.fb_klt_track(tp, tn, torch.from_numpy(pts),
+                           torch.from_numpy(guess) if with_guess else None,
+                           max_levels=levels, **FB_KW)
+    for a, b in zip(res[name], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_fb_klt_track_streams_matches_reference(pyramids, streams, name):
+    jp, jn, _, _, pts = pyramids
+    res, guess = streams
+    levels, with_guess = STREAMS[name]
+    jr = JK.fb_klt_track(jp, jn, jnp.asarray(pts),
+                         jnp.asarray(guess) if with_guess else None,
+                         max_levels=levels, **FB_KW)
+    both = _compare((jr.pts, jr.status, jr.err), tuple(res[name]))
+    assert both.sum() > 0.8 * N_PTS
+
+
+def test_cpu_streams_take_the_plain_version(pyramids, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("kernel launcher called for CPU tensors")
+    monkeypatch.setattr(kernels, "lk_pyramid", boom)
+    monkeypatch.setattr(kernels, "lk_level", boom)
+    _, _, tp, tn, pts = pyramids
+    r, = TK.fb_klt_track_streams(tp, tn, torch.from_numpy(pts[:40]), [None],
+                                 [None], **FB_KW)
+    assert r.pts.shape == (40, 2) and r.status.dtype == torch.bool
+    with pytest.raises(ValueError, match="per stream"):
+        TK.fb_klt_track_streams(tp, tn, torch.from_numpy(pts), [None], [1, 2])
