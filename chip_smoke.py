@@ -18,14 +18,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and 20: both maps torch.equal; kernel and plain times (CUDA events,
      median);
   4. hamming: K2 gated_hamming_search vs its plain version at (N, M) =
-     (1000, 1000) and (2048, 1000), radius 7.5, octave window [-1, 1], ~10%
-     invalid rows, half the targets copying a query descriptor: best, second
-     and idx equal; kernel and plain times;
+     (1000, 1000), (2048, 1000), (1256, 1256) and (300, 2600) (more targets
+     than a block stages at once), under the three callers' gates (radius
+     7.5 with octave window [-1, 1], radius 3 with [-1, 1], radius 8 with
+     [0, 8]), ~10% invalid rows, half the targets copying a query
+     descriptor: best, second and idx torch.equal; times at (2048, 1000) and
+     (1256, 1256); `launch_floor_ms`, K2's device time at N = M = 8 (the
+     least of three readings), the least one launch costs by the device_ms
+     method;
   5. hamming_best2: K4 vs its plain version at (N, M) = (1000, 1000),
      (777, 1013) and (2048, 1000), forward and with the sides swapped (the
      mutual check), ~25% invalid rows and columns, duplicated descriptors
-     (index ties), and a (64, 300) case with no valid target: best, second
-     and idx torch.equal; kernel and plain times;
+     (index ties), and a (64, 300) case with no valid target, one search a
+     launch; then one launch over relocalization's table (three 1000 x 1000
+     candidates, both directions) and over a table of mixed sizes: every
+     search's best, second and idx torch.equal; times of the six-search
+     launch, and of torch.matmul on the same distances as +-1 bf16
+     operands, on the device (200 calls in one CUDA graph, timed as
+     device_ms) and with its dispatch (the yardstick for the tensor-core
+     product; the port never calls it);
   5b. fast_fused: the fused K1 (fast_nms_levels: both thresholds, NMS and
      the border mask of all 8 levels in one launch) vs its plain version on
      the 8-level x1.2 pyramid of a random 480x640 image and of one with flat
@@ -60,11 +71,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
   9. reloc: relocalization at full width with the shipped vocabulary (see
      phase_reloc): a relocalization brings the lost system back to OK
      without a new map, within 10 cm of the first pass, K4 launched; ms per
-     relocalization attempt on the path; then the noisy view relocalized
-     directly as well, within 10 cm of the first pass, and timed;
+     relocalization attempt on the path, and exactly one K4 launch per
+     attempt; then the noisy view relocalized directly as well, within 10
+     cm of the first pass, and timed;
  10. merge: an Atlas break and merge at full width with LoopConfig() and
      the shipped vocabulary (see phase_merge): OK, a merge or loop, >= 90%
-     of the KFs in the active map, K4 and K2 launched; ms of the
+     of the KFs in the active map, K2 launched and exactly one K4 launch
+     per loop check and per relocalization attempt; ms of the
      loop-correcting KF frame.
 Each path's launch counts are set to 0 just before it and read just after;
 every path launches the fused K1 once per frame and the per-level K1 and K3
@@ -73,11 +86,12 @@ Python launcher; `device_ms`, the kernel alone (its C entry launches it 200
 and 400 times back to back between one event pair each, and the difference
 over 200 is one launch; see device_ms); `plain_ms`; and `bound_ms`, the
 least time the card could take, the larger of its bytes over 3.35 TB/s and
-its operations over 67 TFLOP/s, worked out from this run's inputs. No
+its operations over 67 TFLOP/s (K4's distance product: over the tensor
+cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the four paths and nothing else); the last line is
-{"ok": true, "device": {...}}.
+over the four paths and nothing else) with `launch_floor_ms` beside it; the
+last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -147,10 +161,12 @@ LK_TOL_ERR = 1e-4    # mean |residual| where both say ok
 # forward-backward gate's edge, in place of ok.
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and float32 rate outside the tensor cores; integer work is reckoned
-# at the float32 rate.
+# rate, float32 rate outside the tensor cores (integer work there is
+# reckoned at the same rate), and the tensor cores' dense int8 rate (the
+# sheet gives none for 1-bit operands).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 DEVICE_REPS = 200    # back-to-back launches timed for device_ms
 # Operations per pixel of FAST at two thresholds: 16 ring terms of 17 (the
 # difference, four compares, and per threshold and side a subtract, a max
@@ -160,12 +176,14 @@ FAST_OPS_PX = 16 * 17 + 4 * 11 + 6
 NMS_OPS_PX = 2 * 10 + 2
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
     """(least ms the card could take, which limit sets it): every input byte
     read once and every output byte written once at the memory rate, against
-    the operations at the float32 rate."""
+    the operations on the CUDA cores at the float32 rate and those on the
+    tensor cores at the int8 rate (the two units run side by side)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / F32_OPS_PER_S,
+                n_tensor_ops / INT8_TENSOR_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -220,13 +238,31 @@ def device_ms(launch, reps: int = DEVICE_REPS) -> float:
     return (window(2 * reps) - window(reps)) / reps
 
 
-def _times(summary, name, launch, plain, n_bytes, n_ops):
+def graph_device_ms(fn, reps: int = DEVICE_REPS) -> float:
+    """device_ms of a PyTorch call: `reps` calls of fn captured in one CUDA
+    graph, replayed once and twice between event pairs, so that the host's
+    dispatch stays out of the window as it does for the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return device_ms(lambda reps: [graph.replay()
+                                   for _ in range(reps // DEVICE_REPS)], reps)
+
+
+def _times(summary, name, launch, plain, n_bytes, n_ops, n_tensor_ops=0.0):
     """Time a kernel three ways beside its bound and keep the numbers under
     its launcher's name."""
     ms = cuda_ms(launch)
     dms = device_ms(launch)
     pms = cuda_ms(plain)
-    bms, by = bound_ms(n_bytes, n_ops)
+    bms, by = bound_ms(n_bytes, n_ops, n_tensor_ops)
     summary[name].update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
                          bound_by=by, library_ms=None)
     return (f"kernel {ms:.4f} ms with its launcher, {dms:.4f} ms on the "
@@ -335,9 +371,10 @@ def _k2_inputs(n, m, seed):
     rs = np.random.RandomState(seed)
     dq = rs.randint(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
     dt = rs.randint(0, 2 ** 32, (m, 8), dtype=np.uint64).astype(np.uint32)
-    dt[: m // 2] = dq[: m // 2]
+    k = min(n, m) // 2
+    dt[:k] = dq[:k]
     uv_q = (rs.rand(n, 2) * 640).astype(np.float32)
-    uv_t = uv_q[:m] + (rs.randn(m, 2) * 2).astype(np.float32)
+    uv_t = np.resize(uv_q, (m, 2)) + (rs.randn(m, 2) * 2).astype(np.float32)
     lvl_q = rs.randint(0, 8, n).astype(np.int32)
     lvl_t = rs.randint(0, 8, m).astype(np.int32)
     vq = rs.rand(n) > 0.1
@@ -350,24 +387,38 @@ def _k2_inputs(n, m, seed):
                 desc_t=c(dt.view(np.int32)))
 
 
+# the callers' gates: (radius, min_off, max_off) of tracking (7.5 here; 15
+# on the wide retry), fusion and loop verification
+K2_GATES = ((7.5, -1, 1), (3.0, -1, 1), (8.0, 0, 8))
+
+
+def _k2_args(a, radius):
+    return (a["uv_q"], a["level_q"], a["valid_q"], a["desc_q"],
+            torch.full_like(a["radius"], radius), a["uv_t"], a["level_t"],
+            a["valid_t"], a["desc_t"])
+
+
 def phase_hamming(summary):
     worst = 0
-    for n, m in ((1000, 1000), (2048, 1000)):
+    for n, m in ((1000, 1000), (2048, 1000), (1256, 1256), (300, 2600)):
         a = _k2_inputs(n, m, seed=n + m)
-        args = (a["uv_q"], a["level_q"], a["valid_q"], a["desc_q"],
-                a["radius"], a["uv_t"], a["level_t"], a["valid_t"],
-                a["desc_t"])
-        k = kernels.gated_hamming_search(*args, -1, 1, MA.BIG)
-        p = MA.gated_hamming_plain(*args, -1, 1)
-        torch.cuda.synchronize()
-        err = max(int((x - y).abs().max()) for x, y in zip(k, p))
-        for name, x, y in zip(("best", "second", "idx"), k, p):
-            if not torch.equal(x, y):
-                bad = int((x != y).sum())
-                raise AssertionError(
-                    f"gated_hamming_search {name} differs from plain at "
-                    f"N={n} M={m} in {bad} rows")
-        n_match = int((k[2] >= 0).sum())
+        for radius, lo, hi in K2_GATES:
+            args = _k2_args(a, radius)
+            k = kernels.gated_hamming_search(*args, lo, hi, MA.BIG)
+            p = MA.gated_hamming_plain(*args, lo, hi)
+            torch.cuda.synchronize()
+            worst = max(worst, *(int((x - y).abs().max())
+                                 for x, y in zip(k, p)))
+            for name, x, y in zip(("best", "second", "idx"), k, p):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"gated_hamming_search {name} differs from plain at "
+                        f"N={n} M={m}, radius {radius}, window [{lo}, {hi}],"
+                        f" in {int((x != y).sum())} rows")
+            print(f"[K2] gated_hamming_search N={n} M={m} radius {radius} "
+                  f"window [{lo}, {hi}]: equal ({int((k[2] >= 0).sum())} "
+                  f"rows with a candidate)")
+        args = _k2_args(a, 7.5)
         if n == 2048:
             # a pair costs 13 operations to gate (validity, two differences,
             # two abs, four compares, the level offset, three ands) and, if
@@ -381,15 +432,22 @@ def phase_hamming(summary):
                            *args, -1, 1, MA.BIG, reps=reps),
                        lambda: MA.gated_hamming_plain(*args, -1, 1),
                        n * 49 + m * 45 + n * 12, n * m * 13 + n_pass * 28)
-            t += f"; {n_pass} of {n * m} pairs pass the gates"
-        else:
+            print(f"[K2] gated_hamming_search N={n} M={m}: {t}; {n_pass} of "
+                  f"{n * m} pairs pass the gates")
+        elif n == 1256:
             ms = cuda_ms(lambda: kernels.gated_hamming_search(*args, -1, 1,
                                                               MA.BIG))
-            t = f"kernel {ms:.4f} ms with its launcher"
-        print(f"[K2] gated_hamming_search N={n} M={m}: equal "
-              f"({n_match} rows with a candidate), {t}")
-        worst = max(worst, err)
+            dms = device_ms(lambda reps=1: kernels.gated_hamming_search(
+                *args, -1, 1, MA.BIG, reps=reps))
+            print(f"[K2] gated_hamming_search N={n} M={m}: kernel {ms:.4f} ms "
+                  f"with its launcher, {dms:.4f} ms on the device")
     summary["gated_hamming_search"]["max_abs_err"] = float(worst)
+    tiny = _k2_args(_k2_inputs(8, 8, seed=8), 7.5)
+    floor = min(device_ms(lambda reps=1: kernels.gated_hamming_search(
+        *tiny, -1, 1, MA.BIG, reps=reps)) for _ in range(3))
+    summary["gated_hamming_search"]["launch_floor_ms"] = floor
+    print(f"[K2] launch floor: gated_hamming_search at N = M = 8, "
+          f"{floor:.4f} ms on the device")
 
 
 def _k4_inputs(n, m, seed, dev):
@@ -408,41 +466,91 @@ def _k4_inputs(n, m, seed, dev):
     return (c(dq.view(np.int32)), c(vq), c(dt.view(np.int32)), c(vt))
 
 
+def _check_k4(tag, searches, got):
+    """Hold each search of a K4 launch to the plain version, exactly;
+    returns the largest |kernel - plain| over its outputs."""
+    want = [MA.hamming_best2_plain(*s) for s in searches]
+    torch.cuda.synchronize()
+    worst = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for name, x, y in zip(("best", "second", "idx"), g, w):
+            if x.numel():
+                worst = max(worst, int((x - y).abs().max()))
+            if not torch.equal(x, y):
+                n, m = searches[i][0].shape[0], searches[i][2].shape[0]
+                raise AssertionError(
+                    f"hamming_best2 {tag}, search {i} (N={n} M={m}): {name} "
+                    f"differs from plain in {int((x != y).sum())} rows")
+    return worst
+
+
 def phase_hamming_best2(summary):
-    """K4 forward and swapped against the plain version, exact."""
+    """K4 one search a launch, forward and swapped, and batched tables,
+    against the plain version, exact."""
     dev = torch.device("cuda")
-    cases = [(1000, 1000), (777, 1013), (2048, 1000)]
-    for n, m in cases + [(64, 300)]:
+    worst = 0
+    for n, m in ((1000, 1000), (777, 1013), (2048, 1000), (64, 300)):
         dq, vq, dt, vt = _k4_inputs(n, m, n + m, dev)
         if (n, m) == (64, 300):
             vt = torch.zeros_like(vt)    # no valid target for any row
         for side, args in (("forward", (dq, vq, dt, vt)),
                            ("swapped", (dt, vt, dq, vq))):
-            k = kernels.hamming_best2(*args, MA.BIG)
-            p = MA.hamming_best2_plain(*args)
-            torch.cuda.synchronize()
-            for name, x, y in zip(("best", "second", "idx"), k, p):
-                if not torch.equal(x, y):
-                    raise AssertionError(
-                        f"hamming_best2 {side} {name} differs from plain at "
-                        f"N={n} M={m} in {int((x != y).sum())} rows")
-        n_tie = int((k[0] == k[1]).sum())
+            worst = max(worst, _check_k4(
+                f"{side} alone", [args],
+                [kernels.hamming_best2(*args, MA.BIG)]))
+        k = kernels.hamming_best2(dq, vq, dt, vt, MA.BIG)
         print(f"[K4] hamming_best2 N={n} M={m}: forward and swapped equal "
-              f"(rows with best == second: {n_tie})")
+              f"(rows with best == second: {int((k[0] == k[1]).sum())})")
         if (n, m) == (1000, 1000):
-            # every pair: 8 xor, 8 popc, 8 adds, the validity select and the
-            # best-two update, 30 operations
-            t = _times(summary, "hamming_best2",
-                       lambda reps=1: kernels.hamming_best2(
-                           dq, vq, dt, vt, MA.BIG, reps=reps),
-                       lambda: MA.hamming_best2_plain(dq, vq, dt, vt),
-                       (n + m) * 33 + n * 12, n * m * 30)
-            print(f"[K4] hamming_best2 N={n} M={m}: {t}")
-        elif (n, m) in cases:
             ms = cuda_ms(lambda: kernels.hamming_best2(dq, vq, dt, vt, MA.BIG))
-            print(f"[K4] hamming_best2 N={n} M={m}: kernel {ms:.4f} ms with "
-                  f"its launcher")
-    summary["hamming_best2"]["max_abs_err"] = 0.0
+            dms = device_ms(lambda reps=1: kernels.hamming_best2(
+                dq, vq, dt, vt, MA.BIG, reps=reps))
+            print(f"[K4] hamming_best2 N={n} M={m}, one search: kernel "
+                  f"{ms:.4f} ms with its launcher, {dms:.4f} ms on the device")
+
+    # relocalization's table: three candidates, both directions
+    cands = [_k4_inputs(1000, 1000, 50 + c, dev) for c in range(3)]
+    reloc = cands + [(t, vt, q, vq) for q, vq, t, vt in cands]
+    mixed = [_k4_inputs(n, m, n * m, dev)
+             for n, m in ((777, 1013), (1013, 777), (2048, 1000), (1, 1),
+                          (17, 9))]
+    dq, vq, dt, _ = _k4_inputs(64, 300, 3, dev)
+    mixed.append((dq, vq, dt, torch.zeros(300, dtype=torch.bool, device=dev)))
+    for tag, table in (("reloc table", reloc), ("mixed table", mixed)):
+        n0 = kernels.launch_counts["hamming_best2"]
+        got = kernels.hamming_best2_many(table, MA.BIG)
+        if kernels.launch_counts["hamming_best2"] - n0 != 1:
+            raise AssertionError(f"the {tag} took more than one launch")
+        worst = max(worst, _check_k4(tag, table, got))
+        print(f"[K4] hamming_best2 {tag}, {len(table)} searches in one "
+              f"launch: every search equal")
+    pairs = 6 * 1000 * 1000
+    # the distances are one 1-bit product on the tensor cores, 256
+    # multiply-adds (512 operations) a pair, at the int8 rate; on the CUDA
+    # cores every pair costs ~8 integer operations: 3 to form the distance
+    # from the and-popcount (shift, add, subtract), 2 to pack the index and
+    # the validity mask into the key, 3 for the best-two update
+    t = _times(summary, "hamming_best2",
+               lambda reps=1: kernels.hamming_best2_many(reloc, MA.BIG,
+                                                         reps=reps),
+               lambda: [MA.hamming_best2_plain(*s) for s in reloc],
+               6 * (2000 * 33 + 1000 * 12), pairs * 8, pairs * 512)
+    print(f"[K4] hamming_best2 reloc table, 6 x (1000 x 1000): {t}")
+    six = cuda_ms(lambda: [kernels.hamming_best2(*s, MA.BIG) for s in reloc])
+    print(f"[K4] the same six searches as six launches: {six:.4f} ms with "
+          f"the launchers")
+    # the distance product alone, as the TPU kernel formed it: +-1 bf16
+    # operands unpacked beforehand, [6, 1000, 256] x [6, 256, 1000]
+    a = torch.stack([MA.unpack_bits_pm1(s[0]) for s in reloc]).bfloat16()
+    b = torch.stack([MA.unpack_bits_pm1(s[2]) for s in reloc]).bfloat16()
+    bt = b.transpose(1, 2).contiguous()
+    mm = cuda_ms(lambda: torch.matmul(a, bt))
+    mm_dev = graph_device_ms(lambda: torch.matmul(a, bt))
+    summary["hamming_best2"]["distance_matmul_ms"] = mm_dev
+    print(f"[K4] torch.matmul of the +-1 bf16 operands, 6 x (1000 x 256 x "
+          f"1000): {mm_dev:.4f} ms on the device, {mm:.4f} ms with its "
+          f"dispatch (the product alone; not called by the port)")
+    summary["hamming_best2"]["max_abs_err"] = float(worst)
 
 
 def _lk_inputs(h, w, rs, dev):
@@ -759,11 +867,15 @@ def phase_reloc(summary, voc):
     motion model nor TrackReferenceKeyFrame can recover the revisit. Gates:
     a relocalization through SlamSystem, state OK with no new map, the pose
     within 10 cm of the first pass's at that view, and K4 launched. The
-    relocalization attempts on the revisit frames are timed."""
+    relocalization attempts on the revisit frames are timed, and every
+    attempt of the path must launch K4 exactly once (its three candidates,
+    both directions)."""
     cfg = dataclasses.replace(SystemConfig(), time_recently_lost=30.0,
                               min_kfs_for_new_map=99)
     seq = _room(cfg, RECOVER_FPS)
     slam = SlamSystem(cfg, device="cuda", vocab=voc)
+    all_attempts = []
+    _timed(slam, "_relocalize", all_attempts)
     kernels.reset_launch_counts()
     first = {}
     for i in range(20):
@@ -812,6 +924,7 @@ def phase_reloc(summary, voc):
         g, d, _ = seq.frame(i / RECOVER_FPS)
         pose = slam.track_rgbd(g, d, t + 0.5 + i / RECOVER_FPS)
     launches = dict(kernels.launch_counts)
+    n_attempts = len(all_attempts)
     err = float(np.linalg.norm(pose[:3, 3] - first[7][:3, 3]))
     st = slam.map_stats()
     print(f"[reloc] after 3 clean frames: {st}, {err * 100:.3f} cm from the "
@@ -821,8 +934,11 @@ def phase_reloc(summary, voc):
     if st["state"] != "OK" or st["n_maps"] != 1 or not err < 0.1:
         raise AssertionError(f"reloc end state {st}, error {err} m")
     # first pass, tilt, blank, noisy and clean frames
+    print(f"[reloc] {n_attempts} relocalization attempts on the path")
+    if n_attempts < 1:
+        raise AssertionError("the reloc path made no relocalization attempt")
     _count(summary, "reloc", launches, 20 + 16 + n_blank + n_noisy + 3,
-           {"hamming_best2": None, "gated_hamming_search": None})
+           {"hamming_best2": n_attempts, "gated_hamming_search": None})
     # the same relocalization called directly on the lost system's map (after
     # the path's counts were read): the first pass's pose at that view,
     # timed over 5 attempts after one warm-up
@@ -851,12 +967,17 @@ def phase_merge(summary, voc):
     """Atlas break and merge at full width (tests/test_e2e_loop.py's
     staging) with LoopConfig(): phase A until >= 6 KFs, blank frames until a
     second map starts, then a revisit of phase A's views. Gates: state OK,
-    a loop or a merge, >= 90% of the valid KFs in the active map, and K4 and
-    K2 launched."""
+    a loop or a merge, >= 90% of the valid KFs in the active map, K2
+    launched, and K4 launched exactly once per loop check (Sim3
+    verification, both directions) and once per relocalization attempt
+    (the blank frames lose the system)."""
     cfg = dataclasses.replace(SystemConfig(), time_recently_lost=0.25,
                               min_kfs_for_new_map=6, loop=LoopConfig())
     seq = _room(cfg, RECOVER_FPS)
     slam = SlamSystem(cfg, device="cuda", vocab=voc)
+    checks, attempts = [], []
+    _timed(slam.loop_closer, "_verify", checks)
+    _timed(slam, "_relocalize", attempts)
     kernels.reset_launch_counts()
     n_a = 0
     while n_a < 22 or (slam.map_stats()["n_kfs"] < 6 and n_a < 60):
@@ -908,8 +1029,13 @@ def phase_merge(summary, voc):
     if st["state"] != "OK" or not events or not share >= 0.9:
         raise AssertionError(f"merge failed: {st}, {len(events)} "
                              f"loop/merge events, KF share {share}")
+    print(f"[merge] {len(checks)} loop checks, {len(attempts)} "
+          f"relocalization attempts on the path")
+    if not checks:
+        raise AssertionError("the merge path made no loop check")
     _count(summary, "merge", launches, n_a + n_blank + len(frame_ms),
-           {"hamming_best2": None, "gated_hamming_search": None})
+           {"hamming_best2": len(checks) + len(attempts),
+            "gated_hamming_search": None})
 
 
 def new_summary():
@@ -937,13 +1063,15 @@ def main() -> int:
     voc = _vocabulary()
     phase_reloc(summary, voc)
     phase_merge(summary, voc)
-    print(json.dumps({"kernels": [
-        {k: s[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "launches_per_frame", "entry_point_launches",
-                           "max_abs_err", "ms",
-                           "device_ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
-        for s in summary.values()]}))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_per_frame", "entry_point_launches", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "distance_matmul_ms")
+    print(json.dumps({
+        "kernels": [{k: s[k] for k in keys if k in s}
+                    for s in summary.values()],
+        "launch_floor_ms": summary["gated_hamming_search"][
+            "launch_floor_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -9,10 +9,12 @@ plain version:
   kernels/csrc/gated_hamming.cu, the plain `gated_hamming_plain` (the mask
   path of the reference's XLA branch: spatial_mask, level_mask,
   match_descriptors(mutual=False));
-* `match_descriptors` without a mask, its best/second search and its mutual
-  column argmin: the kernel kernels/csrc/hamming_best2.cu (once each way),
-  the plain `hamming_best2_plain`. With a mask it stays on the plain path
-  on either device: no TPU kernel computes it.
+* `match_descriptors_many` (and `match_descriptors` without a mask, its
+  one-pair case): the best/second search of every pair and, with `mutual`,
+  the swapped search whose argbest is the mutual check, all in one launch
+  of the kernel kernels/csrc/hamming_best2.cu; the plain
+  `hamming_best2_plain` per search. With a mask `match_descriptors` stays
+  on the plain path on either device: no TPU kernel computes it.
 The ratio, max-distance and mutual tests stay here around either.
 """
 from __future__ import annotations
@@ -67,15 +69,57 @@ def hamming_best2_plain(desc_q, valid_q, desc_t, valid_t):
     return best.to(torch.int32), second.to(torch.int32), bidx.to(torch.int32)
 
 
+def _as(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x as a contiguous `dtype` tensor, converted only where it is not."""
+    if x.dtype is not dtype or not x.is_contiguous():
+        x = x.to(dtype).contiguous()
+    return x
+
+
+def hamming_best2_many(searches):
+    """Device dispatch of ungated searches [(desc_q, valid_q, desc_t,
+    valid_t), ...]: one kernel launch on CUDA, the plain version search by
+    search on CPU. Returns one (best, second, idx) per search."""
+    dev = searches[0][0].device
+    if dev.type == "cuda":
+        return kernels.hamming_best2_many(
+            [(_as(dq, torch.int32), _as(vq, torch.bool),
+              _as(dt, torch.int32), _as(vt, torch.bool))
+             for dq, vq, dt, vt in searches], BIG)
+    if dev.type != "cpu":
+        raise ValueError(f"hamming_best2_many: unsupported device {dev}")
+    return [hamming_best2_plain(*s) for s in searches]
+
+
 def hamming_best2(desc_q, valid_q, desc_t, valid_t):
-    """Device dispatch of the ungated search: kernel on CUDA, plain on CPU."""
-    if desc_q.is_cuda:
-        return kernels.hamming_best2(
-            desc_q.int().contiguous(), valid_q.bool().contiguous(),
-            desc_t.int().contiguous(), valid_t.bool().contiguous(), BIG)
-    if desc_q.device.type != "cpu":
-        raise ValueError(f"hamming_best2: unsupported device {desc_q.device}")
-    return hamming_best2_plain(desc_q, valid_q, desc_t, valid_t)
+    """One ungated search: hamming_best2_many's one-search case."""
+    return hamming_best2_many([(desc_q, valid_q, desc_t, valid_t)])[0]
+
+
+def _ratio_mutual(best, second, bidx, b_best_a, max_dist, ratio):
+    """The max-distance and ratio tests and, where b_best_a (B's best A per
+    B row) is given, the mutual check. Returns (match_idx, match_dist)."""
+    ok = (best <= max_dist) & (best.float() <= ratio * second.float())
+    if b_best_a is not None:
+        rows = torch.arange(best.shape[0], device=best.device)
+        ok = ok & (b_best_a[bidx.long()] == rows)
+    return (torch.where(ok, bidx, -1).to(torch.int32),
+            torch.where(ok, best, BIG).to(torch.int32))
+
+
+def match_descriptors_many(pairs, max_dist=TH_LOW, ratio: float = 0.9,
+                           mutual: bool = True):
+    """match_descriptors without a mask for every (desc_a, valid_a, desc_b,
+    valid_b) of `pairs`, with the searches of all pairs and both directions
+    in one kernel launch on CUDA. Returns one (match_idx, match_dist) per
+    pair, equal to match_descriptors on that pair."""
+    pairs = list(pairs)
+    searches = pairs + ([(b, vb, a, va) for a, va, b, vb in pairs]
+                        if mutual else [])
+    res = hamming_best2_many(searches)
+    return [_ratio_mutual(*res[p], res[len(pairs) + p][2] if mutual else None,
+                          max_dist, ratio)
+            for p in range(len(pairs))]
 
 
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_dist=TH_LOW,
@@ -83,22 +127,14 @@ def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_dist=TH_LOW,
     """Nearest-neighbour Hamming match with the ratio test and an optional
     mutual check (B's best A must be this row). Returns (match_idx [N] into
     B or -1, match_dist [N])."""
-    n = desc_a.shape[0]
-    rows = torch.arange(n, device=desc_a.device)
     if mask is None:
-        best, second, bidx = hamming_best2(desc_a, valid_a, desc_b, valid_b)
-        b_best_a = (hamming_best2(desc_b, valid_b, desc_a, valid_a)[2]
-                    if mutual else None)
-    else:
-        invalid = (~valid_a[:, None]) | (~valid_b[None, :]) | (~mask)
-        dist = torch.where(invalid, BIG, hamming_matrix(desc_a, desc_b))
-        best, second, bidx = _best_two(dist)
-        b_best_a = torch.argmin(dist.T, dim=1) if mutual else None
-    ok = (best <= max_dist) & (best.float() <= ratio * second.float())
-    if mutual:
-        ok = ok & (b_best_a[bidx.long()] == rows)
-    return (torch.where(ok, bidx, -1).to(torch.int32),
-            torch.where(ok, best, BIG).to(torch.int32))
+        return match_descriptors_many([(desc_a, valid_a, desc_b, valid_b)],
+                                      max_dist, ratio, mutual)[0]
+    invalid = (~valid_a[:, None]) | (~valid_b[None, :]) | (~mask)
+    dist = torch.where(invalid, BIG, hamming_matrix(desc_a, desc_b))
+    best, second, bidx = _best_two(dist)
+    b_best_a = torch.argmin(dist.T, dim=1) if mutual else None
+    return _ratio_mutual(best, second, bidx, b_best_a, max_dist, ratio)
 
 
 def rotation_consistency(angles_a, angles_b, match_idx, n_keep: int = 3):
@@ -150,12 +186,12 @@ def gated_hamming(uv_q, level_q, valid_q, desc_q, radius,
                   uv_t, level_t, valid_t, desc_t, min_off: int, max_off: int):
     """Device dispatch of the gated search: kernel on CUDA, plain on CPU."""
     if uv_q.is_cuda:
+        f32, i32, b = torch.float32, torch.int32, torch.bool
         return kernels.gated_hamming_search(
-            uv_q.float().contiguous(), level_q.int().contiguous(),
-            valid_q.bool().contiguous(), desc_q.int().contiguous(),
-            radius.float().contiguous(), uv_t.float().contiguous(),
-            level_t.int().contiguous(), valid_t.bool().contiguous(),
-            desc_t.int().contiguous(), min_off, max_off, BIG)
+            _as(uv_q, f32), _as(level_q, i32), _as(valid_q, b),
+            _as(desc_q, i32), _as(radius, f32), _as(uv_t, f32),
+            _as(level_t, i32), _as(valid_t, b), _as(desc_t, i32),
+            min_off, max_off, BIG)
     if uv_q.device.type != "cpu":
         raise ValueError(f"gated_hamming: unsupported device {uv_q.device}")
     return gated_hamming_plain(uv_q, level_q, valid_q, desc_q, radius,

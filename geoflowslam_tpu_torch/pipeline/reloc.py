@@ -1,10 +1,12 @@
 """Relocalization core (port of geoflowslam_tpu/pipeline/reloc.py):
-Tracking::Relocalization as BoW retrieval -> per candidate (mutual
-descriptor match, the K4 kernel on the card -> GMS prune -> PnP RANSAC ->
-MLPnP refinement -> pose-only GN) -> the candidate with the most inliers.
+Tracking::Relocalization as BoW retrieval -> the mutual descriptor match of
+every candidate (one K4 launch on the card for all candidates and both
+directions) -> per candidate (GMS prune -> PnP RANSAC -> MLPnP refinement
+-> pose-only GN) -> the candidate with the most inliers.
 
-The reference vmaps over the top-3 candidates; here they run in a loop,
-each on its own minimal sets drawn from the caller's generator.
+The reference vmaps over the top-3 candidates; here the matches are one
+batched search and the rest runs in a loop, each candidate on its own
+minimal sets drawn from the caller's generator.
 """
 from __future__ import annotations
 
@@ -23,17 +25,13 @@ from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state.frame import FrameData
 
 
-def reloc_candidate(ms: M.MapState, frame: FrameData, kf, ok_cand, uvn,
-                    gen: Optional[torch.Generator], tcfg: TrackConfig,
+def reloc_candidate(ms: M.MapState, frame: FrameData, kf: int, ok_cand, uvn,
+                    m_idx, gen: Optional[torch.Generator], tcfg: TrackConfig,
                     w: int, h: int, sample_sets=None):
-    """One candidate KF: match, GMS, PnP RANSAC, ML refinement, pose GN.
+    """One candidate KF from its descriptor matches m_idx (frame keypoint ->
+    KF keypoint or -1): GMS, PnP RANSAC, ML refinement, pose GN.
     Returns (n_inliers gated to 0, rot, t, obs_mp)."""
     feat = frame.feat
-    kf = int(kf)
-    m_idx, _ = MATCH.match_descriptors(
-        feat.desc, feat.valid, ms.kf_desc[kf],
-        ms.kf_kp_valid[kf] & (ms.kf_obs_mp[kf] >= 0),
-        max_dist=MATCH.TH_LOW, ratio=0.85, mutual=True)
     # wide-baseline matches are outlier-heavy: the grid vote prunes them
     # before PnP RANSAC (SearchWithGMS)
     m_idx = gms_filter(feat.uv, ms.kf_uv[kf], m_idx, (w, h), (w, h))
@@ -70,10 +68,15 @@ def reloc_core(vocab: Vv.Vocabulary, db: DBD.KFDatabase, ms: M.MapState,
     c = torch.tensor([tcfg.cx, tcfg.cy], device=feat.uv.device)
     f = torch.tensor([tcfg.fx, tcfg.fy], device=feat.uv.device)
     uvn = (feat.uv - c) / f
+    kfs = idx.tolist()
+    matches = MATCH.match_descriptors_many(
+        [(feat.desc, feat.valid, ms.kf_desc[kf],
+          ms.kf_kp_valid[kf] & (ms.kf_obs_mp[kf] >= 0)) for kf in kfs],
+        max_dist=MATCH.TH_LOW, ratio=0.85, mutual=True)
     results = [reloc_candidate(
-        ms, frame, kf, okc, uvn, gen, tcfg, w, h,
+        ms, frame, kf, okc, uvn, m_idx, gen, tcfg, w, h,
         None if sample_sets is None else sample_sets[b])
-        for b, (kf, okc) in enumerate(zip(idx.tolist(), ok))]
+        for b, (kf, okc, (m_idx, _)) in enumerate(zip(kfs, ok, matches))]
     n_inls = torch.stack([r[0] for r in results])
     b = int(torch.argmax(n_inls))
     n_inl, rot, t, obs2 = results[b]

@@ -1,17 +1,25 @@
-"""Time what one frame pays for FAST and for the optical-flow stage's
-Lucas-Kanade on the card, as the per-level composition and, where the tree
-has them, as the fused entries.
+"""Time the kernels of a frame and of a relocalization attempt on the card:
+FAST and the optical-flow stage's Lucas-Kanade, as the per-level
+composition and, where the tree has them, as the fused entries, and the two
+Hamming searches.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 geoflowslam_tpu_torch/tools/time_frame_kernels.py
+    python3 geoflowslam_tpu_torch/tools/time_frame_kernels.py --compare OLD
 
 It imports the package and chip_smoke.py of the current directory, and uses
 only entries that exist since the per-level kernels were ported, so the same
-file, run from the root of an older checkout, times that checkout (compare
-two trees back to back on one card: the host's pace drifts over time).
+file, run from the root of an older checkout, times that checkout. Compare
+two trees in one call, on one card, in turns: the host's pace drifts over
+time. --compare OLD does so for an older checkout unpacked at OLD (a
+directory that .gitignore lists) and this one, in the order old, this,
+this, old, each a process of its own under a line "== <root>"; the first
+run of each tree builds its kernels.
 
 Jobs, at the shapes of the default SystemConfig's paths:
+  build            seconds that kernels.load() took, `compiled` true where it
+                   ran nvcc (false where the library was already built);
   fast per level   fast_scores_two, nms3x3 of both maps and the 16 px border
                    mask, on each of the 8 levels of the x1.2 pyramid of a
                    random 480x640 image (8 kernel launches and the small
@@ -20,16 +28,27 @@ Jobs, at the shapes of the default SystemConfig's paths:
   lk per level     fb_klt_track twice (3 levels with a guess, 4 without; 1
                    backward level, win 21, 10 iterations, 1256 points) on the
                    4-level LK pyramid of a 480x640 texture (9 launches);
-  lk fused         ops/klt.fb_klt_track_streams on the same inputs.
+  lk fused         ops/klt.fb_klt_track_streams on the same inputs;
+  k2 2048x1000, k2 1256x1256
+                   kernels.gated_hamming_search under tracking's gate
+                   (radius 7.5, octave window [-1, 1]) on chip_smoke.py's
+                   inputs;
+  k4 six launches  a relocalization attempt's six searches (three 1000 x
+                   1000 candidates, both directions) as six
+                   kernels.hamming_best2 calls;
+  k4 one launch    the same six as one table through
+                   kernels.hamming_best2_many, where the tree has it.
 Each job prints one JSON line: `event_ms`, the median of 25 CUDA-event pairs
-around the call (the host's Python and launches included); `device_ms`, the
-device time of all kernels of one call, summed from torch.profiler's CUDA
-activity over 10 calls; `hand_ms` and `hand_launches`, the same for the
-hand-written kernels alone; `n_kernels`, device kernels per call. Where the
-profiler records nothing the four read null; where it loses some launches'
-records, `hand_launches` reads less than `launch_counts` says and the sums
-are that much too small. The first line is the card's name and power limit
-as nvidia-smi gives them.
+around the call (the host's Python and launches included). For the FAST and
+LK jobs `device_ms` is the device time of all kernels of one call, summed
+from torch.profiler's CUDA activity over 10 calls; `hand_ms` and
+`hand_launches`, the same for the hand-written kernels alone; `n_kernels`,
+device kernels per call. Where the profiler records nothing the four read
+null; where it loses some launches' records, `hand_launches` reads less than
+`launch_counts` says and the sums are that much too small. The Hamming jobs
+take `device_ms` from chip_smoke.device_ms instead (their C entries launch
+the kernels `reps` times back to back between event pairs). The first line
+is the card's name and power limit as nvidia-smi gives them.
 """
 from __future__ import annotations
 
@@ -37,6 +56,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.getcwd())
 
@@ -44,10 +64,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import _lk_inputs, cuda_ms
+from chip_smoke import _k2_inputs, _k4_inputs, _lk_inputs, cuda_ms, device_ms
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
+from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import build_pyramid
 
 PROFILED_CALLS = 10
@@ -109,14 +130,50 @@ def report(job, fn):
           flush=True)
 
 
+def hamming_jobs(dev):
+    """(job, launch(reps)) of the K2 and K4 jobs this tree can run."""
+    out = []
+    for n, m in ((2048, 1000), (1256, 1256)):
+        a = _k2_inputs(n, m, seed=n + m)
+        args = (a["uv_q"], a["level_q"], a["valid_q"], a["desc_q"],
+                a["radius"], a["uv_t"], a["level_t"], a["valid_t"],
+                a["desc_t"])
+        out.append((f"k2 {n}x{m}",
+                    lambda reps=1, args=args: kernels.gated_hamming_search(
+                        *args, -1, 1, MA.BIG, reps=reps)))
+    cands = [_k4_inputs(1000, 1000, 50 + c, dev) for c in range(3)]
+    table = cands + [(t, vt, q, vq) for q, vq, t, vt in cands]
+    out.append(("k4 six launches",
+                lambda reps=1: [kernels.hamming_best2(*s, MA.BIG, reps=reps)
+                                for s in table]))
+    if hasattr(kernels, "hamming_best2_many"):
+        out.append(("k4 one launch",
+                    lambda reps=1: kernels.hamming_best2_many(
+                        table, MA.BIG, reps=reps)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_frame_kernels: no CUDA device", file=sys.stderr)
         return 1
-    print(subprocess.run(
+    smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+        capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    args = sys.argv[1:]
+    if args[:1] == ["--compare"] and len(args) == 2:
+        old = os.path.abspath(args[1])
+        for root in (old, os.getcwd(), os.getcwd(), old):
+            print(f"== {root}", flush=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__)],
+                           cwd=root, check=True)
+        return 0
+    compiled = not kernels.library_path().exists()
+    t0 = time.perf_counter()
     kernels.load()
+    print(json.dumps({"job": "build", "s": time.perf_counter() - t0,
+                      "compiled": compiled}), flush=True)
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
     img = torch.from_numpy((rs.rand(480, 640) * 255).astype(np.float32)).cuda()
@@ -135,6 +192,10 @@ def main() -> int:
     if hasattr(KLT, "fb_klt_track_streams"):
         report("lk fused", lambda: KLT.fb_klt_track_streams(
             pyr_p, pyr_n, pts, [guess, None], [3, 4], **LK))
+
+    for job, launch in hamming_jobs(dev):
+        print(json.dumps({"job": job, "event_ms": cuda_ms(launch),
+                          "device_ms": device_ms(launch)}), flush=True)
     return 0
 
 

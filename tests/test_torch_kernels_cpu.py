@@ -2,8 +2,8 @@
 versions and never touch a kernel, CUDA requests without CUDA raise, the
 kernel sources are in the repository, their build directory is ignored by
 git, and the kernel module imports on a machine without nvcc. K4's plain
-version (the ungated best-two search) and match_descriptors are exact
-against the JAX package's XLA path."""
+version (the ungated best-two search), match_descriptors and the batched
+match_descriptors_many are exact against the JAX package's XLA path."""
 import subprocess
 import sys
 from pathlib import Path
@@ -98,6 +98,11 @@ def test_launchers_reject_cpu_tensors():
                               torch.zeros(4, 8, dtype=torch.int32), zi.bool(),
                               MA.BIG)
     with pytest.raises(ValueError, match="CUDA"):
+        kernels.hamming_best2_many(
+            [(torch.zeros(4, 8, dtype=torch.int32), zi.bool(),
+              torch.zeros(3, 8, dtype=torch.int32), zi[:3].bool())] * 2,
+            MA.BIG)
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.lk_level(torch.zeros(8, 8), torch.zeros(8, 8), z2, z2, 21, 10,
                          1e-4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -107,16 +112,21 @@ def test_launchers_reject_cpu_tensors():
 
 
 @pytest.mark.parametrize("bad", ["no_levels", "too_many_levels", "border",
-                                 "stream_levels", "pts_shape", "pyramids"])
+                                 "stream_levels", "pts_shape", "pyramids",
+                                 "no_searches", "too_many_searches",
+                                 "search_arity", "search_shape"])
 def test_fused_launchers_reject_bad_arguments(bad):
-    """Malformed level lists and stream tables raise before any build or
-    launch (no card is needed to see it)."""
+    """Malformed level lists, stream tables and search tables raise before
+    any build or launch (no card is needed to see it)."""
     img = torch.zeros(8, 8)
+    d4, v4 = torch.zeros(4, 8, dtype=torch.int32), torch.ones(4, dtype=torch.bool)
     lk = dict(pyr_prev=[img], pyr_next=[img], pts=torch.zeros(2, 4, 2),
               guess=torch.zeros(2, 4, 2), levels=[1, 1], fb_levels=1,
               scale_factor=2.0, fb_thresh=0.5, win=21, iters=10,
               min_eig=1e-4)
-    with pytest.raises(ValueError):
+    match = {"no_searches": "0 searches", "too_many_searches": "65 searches",
+             "search_arity": "expected 4", "search_shape": "shape"}
+    with pytest.raises(ValueError, match=match.get(bad)):
         if bad == "no_levels":
             kernels.fast_nms_levels([], 7.0, 20.0, 16)
         elif bad == "too_many_levels":
@@ -128,8 +138,17 @@ def test_fused_launchers_reject_bad_arguments(bad):
             kernels.lk_pyramid(**dict(lk, levels=[1, 2]))
         elif bad == "pts_shape":
             kernels.lk_pyramid(**dict(lk, pts=torch.zeros(4, 2)))
-        else:
+        elif bad == "pyramids":
             kernels.lk_pyramid(**dict(lk, pyr_next=[img, img]))
+        elif bad == "no_searches":
+            kernels.hamming_best2_many([], MA.BIG)
+        elif bad == "too_many_searches":
+            kernels.hamming_best2_many(
+                [(d4, v4, d4, v4)] * (kernels.K4_MAX_SEARCHES + 1), MA.BIG)
+        elif bad == "search_arity":
+            kernels.hamming_best2_many([(d4, v4, d4)], MA.BIG)
+        else:
+            kernels.hamming_best2_many([(d4[:, :4], v4, d4, v4)], MA.BIG)
 
 
 def test_cuda_system_without_cuda_raises(monkeypatch):
@@ -237,3 +256,36 @@ def test_match_descriptors_unmasked_matches_jax(n, m, none_valid, mutual):
                                        mutual=mutual)
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
         np.testing.assert_array_equal(dtt.numpy(), np.asarray(dj))
+
+
+# (N, M, no valid target) of the three pairs of a batch: unequal sizes, one
+# pair whose targets are all invalid
+MANY_PAIRS = [(100, 120, False), (57, 40, True), (131, 77, False)]
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+def test_match_descriptors_many_matches_per_pair_and_jax(mutual):
+    """The batched entry's plain path equals match_descriptors on each pair
+    and the JAX package's match_descriptors, exactly, with duplicated
+    descriptors (ties on best and second)."""
+    pairs = [_k4_inputs(n, m, seed=7 * n + m, all_invalid_t=none)
+             for n, m, none in MANY_PAIRS]
+    got = MA.match_descriptors_many([tuple(T(x) for x in p) for p in pairs],
+                                    max_dist=JM.TH_LOW, ratio=0.85,
+                                    mutual=mutual)
+    assert len(got) == len(pairs)
+    n_ties = 0
+    for (dq, vq, dt, vt), (it, dtt) in zip(pairs, got):
+        one = MA.match_descriptors(T(dq), T(vq), T(dt), T(vt),
+                                   max_dist=JM.TH_LOW, ratio=0.85,
+                                   mutual=mutual)
+        assert torch.equal(it, one[0]) and torch.equal(dtt, one[1])
+        ij, dj = JM.match_descriptors(
+            jnp.asarray(dq), jnp.asarray(vq), jnp.asarray(dt),
+            jnp.asarray(vt), max_dist=JM.TH_LOW, ratio=0.85, mutual=mutual)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(dtt.numpy(), np.asarray(dj))
+        b, s, _ = MA.hamming_best2_plain(T(dq), T(vq), T(dt), T(vt))
+        n_ties += int(((b == s) & (b < MA.BIG)).sum())
+    assert n_ties > 0
+    assert (got[1][0] == -1).all() and (got[0][0] >= 0).any()

@@ -38,8 +38,17 @@ def test_fast_scores_kernel_exact(cuda):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("n,m", [(1000, 1000), (2048, 1000), (37, 300)])
-def test_gated_hamming_kernel_exact(cuda, n, m):
+# the callers' gates: tracking (radius 7.5 here), fusion (radius 3), loop
+# verification (radius 8, octave window [0, 8])
+K2_GATES = [(7.5, -1, 1), (3.0, -1, 1), (8.0, 0, 8)]
+
+
+@pytest.mark.parametrize("radius,min_off,max_off", K2_GATES)
+@pytest.mark.parametrize("n,m", [(1000, 1000), (2048, 1000), (1256, 1256),
+                                 (300, 2600), (37, 300)])
+def test_gated_hamming_kernel_exact(cuda, n, m, radius, min_off, max_off):
+    """K2 against its plain version, exact, at the paths' shapes, one M
+    beyond what a block stages at once (2048), under the three gates."""
     rs = np.random.RandomState(n + m)
     dq = rs.randint(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64).astype(np.int32)
     dt = rs.randint(-2 ** 31, 2 ** 31, (m, 8), dtype=np.int64).astype(np.int32)
@@ -50,13 +59,14 @@ def test_gated_hamming_kernel_exact(cuda, n, m):
     uv_t = np.resize(uv_q, (m, 2)) + (rs.randn(m, 2) * 2).astype(np.float32)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     args = (c(uv_q), c(rs.randint(0, 8, n).astype(np.int32)),
-            c(rs.rand(n) > 0.1), c(dq), torch.full((n,), 7.5, device=cuda),
+            c(rs.rand(n) > 0.1), c(dq), torch.full((n,), radius, device=cuda),
             c(uv_t.astype(np.float32)), c(rs.randint(0, 8, m).astype(np.int32)),
             c(rs.rand(m) > 0.1), c(dt))
-    got = kernels.gated_hamming_search(*args, -1, 1, MA.BIG)
-    want = MA.gated_hamming_plain(*args, -1, 1)
+    got = kernels.gated_hamming_search(*args, min_off, max_off, MA.BIG)
+    want = MA.gated_hamming_plain(*args, min_off, max_off)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert int((want[2] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("n,m,none_valid", [(1000, 1000, False),
@@ -85,10 +95,57 @@ def test_hamming_best2_kernel_exact(cuda, n, m, none_valid):
             assert torch.equal(a, b)
 
 
+def _k4_table(cuda, shapes, seed):
+    """One search per (n, m, no valid target): ~25% invalid rows and
+    columns, queries copied from targets and duplicated targets."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for n, m, none_valid in shapes:
+        dq = rs.randint(-2 ** 31, 2 ** 31, (n, 8),
+                        dtype=np.int64).astype(np.int32)
+        dt = rs.randint(-2 ** 31, 2 ** 31, (m, 8),
+                        dtype=np.int64).astype(np.int32)
+        k = min(n, m) // 4
+        dq[:k] = dt[rs.randint(0, m, k)]
+        dt[m // 2:m // 2 + m // 8] = dt[:m // 8]
+        vq, vt = rs.rand(n) > 0.25, rs.rand(m) > 0.25
+        if none_valid:
+            vt[:] = False
+        out.append(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                         for a in (dq, vq, dt, vt)))
+    return out
+
+
+@pytest.mark.parametrize("table", ["reloc", "mixed"])
+def test_hamming_best2_many_kernel_exact(cuda, table):
+    """One launch of K4 over a table: relocalization's six searches (three
+    1000 x 1000 candidates, both directions) and a table of mixed sizes with
+    an all-invalid target set, each search torch.equal to the plain
+    version."""
+    if table == "reloc":
+        fwd = _k4_table(cuda, [(1000, 1000, False)] * 3, seed=1)
+        searches = fwd + [(t, vt, q, vq) for q, vq, t, vt in fwd]
+    else:
+        searches = _k4_table(cuda, [(777, 1013, False), (64, 300, True),
+                                    (1, 1, False), (2048, 1000, False),
+                                    (0, 5, False), (17, 9, False)], seed=2)
+    kernels.reset_launch_counts()
+    got = kernels.hamming_best2_many(searches, MA.BIG)
+    assert kernels.launch_counts["hamming_best2"] == 1
+    assert len(got) == len(searches)
+    for s, g in zip(searches, got):
+        if s[0].shape[0] == 0:
+            assert all(x.numel() == 0 for x in g)
+            continue
+        for a, b in zip(g, MA.hamming_best2_plain(*s)):
+            assert torch.equal(a, b)
+
+
 def test_match_descriptors_on_cuda_goes_through_the_kernel(cuda,
                                                            monkeypatch):
-    """An unmasked match launches K4 twice with mutual (once each way), and
-    equals the CPU result; with the launcher made to raise, it raises."""
+    """An unmasked match launches K4 once with mutual (both directions in
+    one table), match_descriptors_many once for all its pairs, and both
+    equal the CPU result; with the launcher made to raise, they raise."""
     rs = np.random.RandomState(5)
     d = rs.randint(-2 ** 31, 2 ** 31, (300, 8), dtype=np.int64).astype(np.int32)
     e = d.copy()
@@ -97,14 +154,23 @@ def test_match_descriptors_on_cuda_goes_through_the_kernel(cuda,
     cpu = [torch.from_numpy(x) for x in (d, v, e, v)]
     kernels.reset_launch_counts()
     got = MA.match_descriptors(*(x.to(cuda) for x in cpu), mutual=True)
-    assert kernels.launch_counts["hamming_best2"] == 2
+    assert kernels.launch_counts["hamming_best2"] == 1
     want = MA.match_descriptors(*cpu, mutual=True)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+    pairs = [cpu, [cpu[2][:200], cpu[3][:200], cpu[0], cpu[1]], cpu]
+    kernels.reset_launch_counts()
+    got = MA.match_descriptors_many([[x.to(cuda) for x in p] for p in pairs],
+                                    ratio=0.85)
+    assert kernels.launch_counts["hamming_best2"] == 1
+    for p, g in zip(pairs, got):
+        want = MA.match_descriptors(*p, ratio=0.85)
+        for a, b in zip(g, want):
+            assert torch.equal(a.cpu(), b)
 
     def boom(*a, **k):
         raise RuntimeError("hamming_best2 launcher reached")
-    monkeypatch.setattr(kernels, "hamming_best2", boom)
+    monkeypatch.setattr(kernels, "hamming_best2_many", boom)
     with pytest.raises(RuntimeError, match="launcher reached"):
         MA.match_descriptors(*(x.to(cuda) for x in cpu), mutual=False)
 

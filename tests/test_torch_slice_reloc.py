@@ -18,7 +18,9 @@ it after every local BA; the port keeps it, as the fused path does).
 reloc_core itself is then replayed on the reference's map at the moment of
 the first noisy frame, converted, with a BoW database holding every KF: the
 best candidate's inlier gate must agree and its pose be within 1 mm and
-0.05 deg of the reference's, both sides fed the same PnP RANSAC draws.
+0.05 deg of the reference's, both sides fed the same PnP RANSAC draws. On
+the port's own map it returns exactly what the per-candidate order it
+replaced returns (each candidate matched on its own, then the rest).
 """
 import jax
 import jax.numpy as jnp
@@ -38,9 +40,11 @@ from geoflowslam_tpu.state.frame import FrameData as JFrameData
 
 from geoflowslam_tpu_torch import convert
 from geoflowslam_tpu_torch.eval.ate import ate_rmse
+from geoflowslam_tpu_torch.ops import matching as TM
 from geoflowslam_tpu_torch.pipeline import reloc as TR
 from geoflowslam_tpu_torch.pipeline import tracking as TT
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+from geoflowslam_tpu_torch.retrieval import kf_database as TDB
 from geoflowslam_tpu_torch.retrieval import vocab as TV
 from geoflowslam_tpu_torch.state.frame import build_frame
 from tests.test_torch_slice_loop import FPS, H, W, configs, frame, scene
@@ -264,6 +268,42 @@ def test_reloc_core_matches_reference(world, reference):
     assert _rot_deg(rot_t.numpy(), rot_j) < 0.05
     same = (obs_t.numpy() == np.asarray(obs_j)).mean()
     assert same > 0.98, same
+
+
+def test_reloc_core_batched_match_keeps_the_per_candidate_result(world,
+                                                                  port):
+    """reloc_core matches all three candidates in one batched search (one
+    K4 launch on the card). On the port's map at the end of its run, for the
+    noisy revisit, it returns exactly what the order it replaced returns:
+    each candidate matched on its own, then GMS, PnP RANSAC, MLPnP and pose
+    GN, the generator drawn in the same order."""
+    slam = port["slam"]
+    cfg, trk, ms, db = slam.cfg, slam.tcfg, slam.ms, slam.reloc_db
+    noisy_g, noisy_d = world[3]
+    tframe = build_frame(torch.from_numpy(noisy_g), torch.from_numpy(noisy_d),
+                         cfg.frame, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+    got = TR.reloc_core(slam.vocab, db, ms, tframe,
+                        torch.Generator().manual_seed(5), trk, W, H)
+
+    gen = torch.Generator().manual_seed(5)
+    feat = tframe.feat
+    qvec = TV.bow_vector(slam.vocab, TV.descend(slam.vocab, feat.desc,
+                                                feat.valid))
+    idx, _, ok = TDB.detect_relocalization_candidates(db, ms, qvec, n_best=3)
+    uvn = ((feat.uv - torch.tensor([trk.cx, trk.cy]))
+           / torch.tensor([trk.fx, trk.fy]))
+    res = []
+    for kf, okc in zip(idx.tolist(), ok):
+        m_idx, _ = TM.match_descriptors(
+            feat.desc, feat.valid, ms.kf_desc[kf],
+            ms.kf_kp_valid[kf] & (ms.kf_obs_mp[kf] >= 0),
+            max_dist=TM.TH_LOW, ratio=0.85, mutual=True)
+        res.append(TR.reloc_candidate(ms, tframe, kf, okc, uvn, m_idx, gen,
+                                      trk, W, H))
+    b = int(torch.argmax(torch.stack([r[0] for r in res])))
+    for a, w in zip(got, (*res[b], idx[b])):
+        assert torch.equal(a, w)
+    assert int(got[0]) >= cfg.min_inliers_ok
 
 
 def test_track_reference_keyframe_matches_reference(world, reference):
