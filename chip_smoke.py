@@ -69,16 +69,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
      K1 exactly once per frame and the fused K3 once per frame after the
      first;
   9. reloc: relocalization at full width with the shipped vocabulary (see
-     phase_reloc): a relocalization brings the lost system back to OK
-     without a new map, within 10 cm of the first pass, K4 launched; ms per
-     relocalization attempt on the path, and exactly one K4 launch per
-     attempt; then the noisy view relocalized directly as well, within 10
-     cm of the first pass, and timed;
+     phase_reloc), through the façade's default (fused) recovery: a
+     relocalization brings the lost system back to OK without a new map,
+     within 10 cm of the first pass, K4 launched; ms per relocalization
+     attempt on the path, and exactly one K4 launch per attempt; then the
+     noisy view relocalized directly as well, within 10 cm of the first
+     pass, and timed;
  10. merge: an Atlas break and merge at full width with LoopConfig() and
      the shipped vocabulary (see phase_merge): OK, a merge or loop, >= 90%
      of the KFs in the active map, K2 launched and exactly one K4 launch
      per loop check and per relocalization attempt; ms of the
-     loop-correcting KF frame.
+     loop-correcting KF frame;
+ 11. hard: the first HARD_FRAMES frames (20 s at 30 fps) of the hard-mode
+     sequence through the configuration of
+     geoflowslam_tpu_torch/tools/run_hardmode.py (640x480, 1000 features, 8
+     levels, k_max 128, m_max 32768), packed m12 buffers pre-rendered on the
+     card, the shipped vocabulary, no loop closing: state OK and 1 map at
+     the end, ATE < 5 cm and RPE < 3 cm on the tracked frames, finite
+     poses, no KF-stall warning, the fused K1 once per frame, K2 launched,
+     K4 exactly once per relocalization attempt; n_lost, n_recovered (frames
+     the recovery step took), n_reloc and ms per frame (median, p90).
 Each path's launch counts are set to 0 just before it and read just after;
 every path launches the fused K1 once per frame and the per-level K1 and K3
 never. Every kernel has three times: `ms`, the CUDA-event median around its
@@ -90,7 +100,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the four paths and nothing else) with `launch_floor_ms` beside it; the
+over the five paths and nothing else) with `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -110,7 +120,8 @@ import torch.nn.functional as F
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.config import LoopConfig, SystemConfig
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
-from geoflowslam_tpu_torch.io.synthetic import (Camera, SyntheticSequence,
+from geoflowslam_tpu_torch.io.synthetic import (Camera, HardSyntheticSequence,
+                                                SyntheticSequence,
                                                 SyntheticWorld)
 from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
@@ -120,6 +131,7 @@ from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.retrieval import vocab as V
 from geoflowslam_tpu_torch.state.frame import build_frame
+from geoflowslam_tpu_torch.tools import run_hardmode as HM
 
 KERNEL_INFO = {
     "fast_scores": dict(
@@ -145,6 +157,7 @@ N_FRAMES = 150
 FPS = 30.0
 OF_FPS = 10.0
 RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
+HARD_FRAMES = 600    # the hard path: 20 s, into the first texture-poor window
 LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 # K3 vs plain on the card. Samples, template and gradients are equal bit for
 # bit (same float32 operations); only the 441- or 961-term sums run in
@@ -684,7 +697,7 @@ def phase_entry_points(summary):
     (fast_scores_two, klt_track) still launch them on the card. Driven here
     at full width and counted under a key of their own,
     `entry_point_launches`: `launches` and `launches_per_frame` hold only
-    what the four paths counted, which is 0 for these two."""
+    what the five paths counted, which is 0 for these two."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(5)
     prev, nxt, pts, guess = _lk_inputs(480, 640, rs, dev)
@@ -864,7 +877,8 @@ def phase_reloc(summary, voc):
     degrees over 16 frames, so that the last reference KF shares no view
     with the start), blank frames until RECENTLY_LOST, a noisy revisit of
     the view at 0.4 s for up to 3 frames, then 3 clean frames. Neither the
-    motion model nor TrackReferenceKeyFrame can recover the revisit. Gates:
+    motion model nor the recovery's 40 px re-search can recover the
+    revisit. Gates:
     a relocalization through SlamSystem, state OK with no new map, the pose
     within 10 cm of the first pass's at that view, and K4 launched. The
     relocalization attempts on the revisit frames are timed, and every
@@ -875,7 +889,7 @@ def phase_reloc(summary, voc):
     seq = _room(cfg, RECOVER_FPS)
     slam = SlamSystem(cfg, device="cuda", vocab=voc)
     all_attempts = []
-    _timed(slam, "_relocalize", all_attempts)
+    _timed(slam, "_reloc_attempt", all_attempts)
     kernels.reset_launch_counts()
     first = {}
     for i in range(20):
@@ -906,7 +920,7 @@ def phase_reloc(summary, voc):
     noisy = torch.clamp(g + 6.0 * torch.randn(g.shape, device="cuda",
                                               generator=gen), 0, 255)
     attempts = []
-    _timed(slam, "_relocalize", attempts)
+    _timed(slam, "_reloc_attempt", attempts)
     n_noisy = 0
     t += 1.0
     while n_noisy < 3 and slam.state.name != "OK":
@@ -977,7 +991,7 @@ def phase_merge(summary, voc):
     slam = SlamSystem(cfg, device="cuda", vocab=voc)
     checks, attempts = [], []
     _timed(slam.loop_closer, "_verify", checks)
-    _timed(slam, "_relocalize", attempts)
+    _timed(slam, "_reloc_attempt", attempts)
     kernels.reset_launch_counts()
     n_a = 0
     while n_a < 22 or (slam.map_stats()["n_kfs"] < 6 and n_a < 60):
@@ -1038,6 +1052,70 @@ def phase_merge(summary, voc):
             "gated_hamming_search": None})
 
 
+def phase_hard(summary, voc):
+    """The hard-mode sequence's first HARD_FRAMES frames through the
+    hard-mode script's configuration and its pre-rendered m12 buffers
+    (tools/run_hardmode.py), the shipped vocabulary, no loop closing. The
+    span holds the first fast-rotation bursts and the first texture-poor
+    window (contrast under 0.2 from t ~ 4 s to 16 s). Gates: OK with 1 map
+    at the end, ATE < 5 cm and RPE < 3 cm on the tracked frames, finite
+    poses, no KF-stall warning; the fused K1 once per frame, K2 launched,
+    K4 exactly once per relocalization attempt (a wrapper on
+    SlamSystem._reloc_attempt counts them)."""
+    dev = torch.device("cuda")
+    cfg = HM.make_config(640, 480, 1000, loop=False, of=False, icp=False)
+    cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=640,
+                 height=480)
+    seq = HardSyntheticSequence(SyntheticWorld(cam, device=dev), fps=FPS)
+    ts = np.arange(HARD_FRAMES) / FPS
+    rot_cw, t_cw, twc_gt = HM.ground_truth(seq, ts)
+    t0 = time.perf_counter()
+    bufs = HM.prerender(seq, rot_cw, t_cw, ts)
+    print(f"[hard] pre-rendered {HARD_FRAMES} m12 frames 640x480 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    slam = SlamSystem(cfg, dev, vocab=voc)
+    attempts = []
+    _timed(slam, "_reloc_attempt", attempts)
+    kernels.reset_launch_counts()
+    gt, ms_per_frame = [], []
+    for i in range(HARD_FRAMES):
+        t_abs = 1.4e9 + ts[i]
+        t1 = time.perf_counter()
+        slam.track_rgbd(bufs[i], None, t_abs)
+        torch.cuda.synchronize()
+        ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
+        gt.append((t_abs, twc_gt[i]))
+    launches = dict(kernels.launch_counts)
+    stats = slam.map_stats()
+    traj = slam.trajectory
+    poses = np.stack([p for _, p in traj])
+    ate = ate_rmse(traj, gt)
+    rp = rpe(traj, gt)
+    steady = np.asarray(ms_per_frame[1:])
+    print(f"[hard] {stats}, {len(traj)} poses, ATE "
+          f"{ate['ate_rmse'] * 100:.3f} cm, RPE {rp['rpe_trans'] * 100:.3f} "
+          f"cm / {rp['rpe_rot_deg']:.4f} deg; n_lost {slam.n_lost}, "
+          f"n_recovered {slam.n_recovered}, n_reloc {slam.n_reloc}, "
+          f"{len(attempts)} relocalization attempts, "
+          f"kf_stall_warnings {slam.kf_stall_warnings}")
+    print(f"[hard] ms/frame (frames 2..{HARD_FRAMES}): median "
+          f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
+          f"New_KF median {np.median(slam.timers.samples['New_KF']):.2f} ms "
+          f"over {len(slam.timers.samples['New_KF'])} KFs")
+    if stats["state"] != "OK" or stats["n_maps"] != 1:
+        raise AssertionError(f"hard path ended {stats}")
+    if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
+        raise AssertionError("non-finite or misshapen poses")
+    if not ate["ate_rmse"] < 0.05:
+        raise AssertionError(f"hard ATE {ate['ate_rmse']} m >= 5 cm")
+    if not rp["rpe_trans"] < 0.03:
+        raise AssertionError(f"hard RPE {rp['rpe_trans']} m >= 3 cm")
+    if slam.kf_stall_warnings != 0:
+        raise AssertionError(f"{slam.kf_stall_warnings} KF-stall warnings")
+    _count(summary, "hard", launches, HARD_FRAMES,
+           {"gated_hamming_search": None, "hamming_best2": len(attempts)})
+
+
 def new_summary():
     return {k: dict(name=k, route="cuda", launches=0, launches_per_frame={},
                     entry_point_launches=0, **v)
@@ -1063,6 +1141,7 @@ def main() -> int:
     voc = _vocabulary()
     phase_reloc(summary, voc)
     phase_merge(summary, voc)
+    phase_hard(summary, voc)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_frame", "entry_point_launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,5 +1,6 @@
-"""Synthetic textured room and trajectory (port of
-geoflowslam_tpu/io/synthetic.py, the pinhole RGB-D part).
+"""Synthetic textured room and trajectories (port of
+geoflowslam_tpu/io/synthetic.py, the pinhole RGB-D part and the hard-mode
+sequence).
 
 The texture is the reference's numpy value noise (RandomState(seed)), so
 both packages render the same room; rays, plane hits and the bilinear
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from geoflowslam_tpu_torch.math import lie
+
+GRAVITY = np.array([0.0, 0.0, -9.81], np.float32)
 
 
 def make_texture(seed: int, size: int = 1024, octaves: int = 5) -> np.ndarray:
@@ -57,8 +60,8 @@ class SyntheticWorld:
     World frame: x right, y down, z forward."""
 
     def __init__(self, cam: Camera = Camera(), seed: int = 7,
-                 half_extent=(3.0, 2.0, 4.0), tex_scale: float = 0.7,
-                 device: torch.device | str = "cpu"):
+                 half_extent=(3.0, 2.0, 4.0), tex_scale: float = 0.7, *,
+                 device: torch.device | str):
         self.cam = cam
         self.device = torch.device(device)
         self.tex = torch.from_numpy(make_texture(seed)).to(self.device)
@@ -184,3 +187,91 @@ class SyntheticSequence:
         rot_cw, t_cw = self.pose_cw(t)
         gray, depth = self.world.render(rot_cw, t_cw)
         return gray, depth, (rot_cw, t_cw)
+
+
+def hard_trajectory(t: torch.Tensor, period: float = 40.0):
+    """Hard-mode Twc trajectory at times t [...]: a loop around the room that
+    revisits its start every `period` seconds, a vertical bob, and a yaw
+    sweep with fast-rotation bursts (the 1.9 rad/s term). Returns (R_wc,
+    p_w, v_w, a_w, w_body) with exact derivatives, as smooth_trajectory."""
+    om = 2.0 * np.pi / period
+    p = torch.stack([
+        1.6 * torch.sin(om * t),
+        0.4 * torch.sin(3.0 * om * t + 1.0),
+        1.6 * torch.cos(om * t) + 0.8,
+    ], dim=-1)
+    v = torch.stack([
+        1.6 * om * torch.cos(om * t),
+        1.2 * om * torch.cos(3.0 * om * t + 1.0),
+        -1.6 * om * torch.sin(om * t),
+    ], dim=-1)
+    a = torch.stack([
+        -1.6 * om * om * torch.sin(om * t),
+        -3.6 * om * om * torch.sin(3.0 * om * t + 1.0),
+        -1.6 * om * om * torch.cos(om * t),
+    ], dim=-1)
+    phi = torch.stack([
+        0.12 * torch.sin(0.31 * t),
+        0.35 * torch.sin(om * 2.0 * t) + 0.25 * torch.sin(1.9 * t),
+        0.06 * torch.sin(0.21 * t),
+    ], dim=-1)
+    phi_dot = torch.stack([
+        0.12 * 0.31 * torch.cos(0.31 * t),
+        0.35 * 2.0 * om * torch.cos(om * 2.0 * t)
+        + 0.25 * 1.9 * torch.cos(1.9 * t),
+        0.06 * 0.21 * torch.cos(0.21 * t),
+    ], dim=-1)
+    rot = lie.so3_exp(phi)
+    w_body = torch.einsum("...ij,...j->...i", lie.so3_right_jacobian(phi),
+                          phi_dot)
+    return rot, p, v, a, w_body
+
+
+def contrast_schedule(t: float, period: float = 40.0) -> float:
+    """Texture contrast multiplier in [0.12, 1] at time t (host float): two
+    texture-poor windows per loop."""
+    s = 0.5 * (1.0 + np.cos(2.0 * np.pi * 2.0 * t / period))
+    return 0.12 + 0.88 * float(s) ** 6
+
+
+class HardSyntheticSequence:
+    """The hard-mode sequence: loop revisits every `period` s, fast-rotation
+    bursts and texture-poor segments (contrast pulled towards 110; depth is
+    untouched, as on a real blank wall)."""
+
+    def __init__(self, world: SyntheticWorld, fps: float = 30.0,
+                 imu_rate: float = 200.0, period: float = 40.0):
+        self.world = world
+        self.fps = fps
+        self.imu_rate = imu_rate
+        self.period = period
+
+    def pose_cw(self, t: float):
+        """Ground-truth Tcw at time t, float32 on the world's device."""
+        tt = torch.tensor(float(t), dtype=torch.float32,
+                          device=self.world.device)
+        rot_wc, p, *_ = hard_trajectory(tt, self.period)
+        rot_cw = rot_wc.T
+        return rot_cw, -rot_cw @ p
+
+    def frame(self, t: float):
+        rot_cw, t_cw = self.pose_cw(t)
+        gray, depth = self.world.render(rot_cw, t_cw)
+        c = contrast_schedule(t, self.period)
+        if c < 0.999:
+            gray = 110.0 + (gray - 110.0) * c
+        return gray, depth, (rot_cw, t_cw)
+
+    def imu_between(self, t0: float, t1: float, max_samples: int):
+        """Padded IMU samples in (t0, t1]: (acc [S, 3], gyro [S, 3], dt [S])
+        in the body frame, float32 on the world's device."""
+        dev = self.world.device
+        dt = 1.0 / self.imu_rate
+        n = max(int(round((t1 - t0) * self.imu_rate)), 0)
+        idx = torch.arange(max_samples, device=dev)
+        ts = t0 + (idx.float() + 0.5) * dt
+        rot_wb, _, _, a_w, w_body = hard_trajectory(ts, self.period)
+        acc_b = torch.einsum("sij,sj->si", rot_wb.transpose(-1, -2),
+                             a_w - torch.from_numpy(GRAVITY).to(dev))
+        dts = torch.where(idx < n, dt, 0.0)
+        return (acc_b.float(), w_body.float(), dts.float())

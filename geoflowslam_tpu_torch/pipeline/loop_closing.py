@@ -219,7 +219,7 @@ class LoopCloser:
 
     def __init__(self, vocab: V.Vocabulary, k_max: int,
                  cfg: LoopConfig = LoopConfig(),
-                 map_cfg: Optional[MappingConfig] = None, device="cpu"):
+                 map_cfg: Optional[MappingConfig] = None, *, device):
         self.vocab = vocab
         self.cfg = cfg
         self.device = torch.device(device)

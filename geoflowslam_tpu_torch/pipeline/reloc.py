@@ -7,10 +7,16 @@ directions) -> per candidate (GMS prune -> PnP RANSAC -> MLPnP refinement
 The reference vmaps over the top-3 candidates; here the matches are one
 batched search and the rest runs in a loop, each candidate on its own
 minimal sets drawn from the caller's generator.
+
+`recover_frame` is the recovery step of the reference's fused frame step
+(geoflowslam_tpu/pipeline/fused.py, its with_recovery variant): a 40 px
+re-search from the predicted pose, else relocalization, adopted only well
+above the tracking floor.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -81,3 +87,37 @@ def reloc_core(vocab: Vv.Vocabulary, db: DBD.KFDatabase, ms: M.MapState,
     b = int(torch.argmax(n_inls))
     n_inl, rot, t, obs2 = results[b]
     return n_inl, rot, t, obs2, idx[b]
+
+
+class Recovery(NamedTuple):
+    n_inliers: int
+    rot: torch.Tensor
+    t: torch.Tensor
+    obs_mp: torch.Tensor
+    kf: int               # the matched KF (the reference KF on a re-search)
+    relocalized: bool     # reloc_core gave the pose
+
+
+def recover_frame(ms: M.MapState, frame: FrameData, last_obs_mp, pred_rot,
+                  pred_t, ref_kf: int, last_levels, tcfg: TrackConfig,
+                  min_inliers: int,
+                  relocalize: Callable) -> Optional[Recovery]:
+    """Recover a frame whose normal track failed: track_with_motion_model at
+    a 40 px radius from the predicted pose against the last bindings; when
+    that keeps fewer than `min_inliers`, `relocalize(frame)` (reloc_core's
+    (n_inl, rot, t, obs_mp, cand)). The result is adopted at
+    >= max(min_inliers, 30) inliers, else None.
+
+    The reference computes both stages and selects; here relocalization
+    runs only when the re-search fails, so its attempts, and the draws of
+    its generator, follow the frames that needed it."""
+    wide = dataclasses.replace(tcfg, search_radius_mm=40.0)
+    res = T.track_with_motion_model(ms, frame, last_obs_mp, pred_rot, pred_t,
+                                    wide, last_levels)
+    n = int(res.n_inliers)
+    if n >= min_inliers:
+        out = Recovery(n, res.rot, res.t, res.obs_mp, ref_kf, False)
+    else:
+        n_r, rot, t, obs, cand = relocalize(frame)
+        out = Recovery(int(n_r), rot, t, obs, int(cand), True)
+    return out if out.n_inliers >= max(min_inliers, 30) else None

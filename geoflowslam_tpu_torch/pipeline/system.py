@@ -2,12 +2,12 @@
 geoflowslam_tpu/pipeline/system.py's RGB-D path).
 
 Per frame, in the caller's thread, on the system's device:
-  motion-model pose prediction -> build_frame -> [use_icp: GICP/NDT
-  registration against the last frame as the pose predictor] -> [use_of:
-  the dual-stream optical flow fills the frame's OF slots] ->
-  track_with_motion_model (wide-radius retry from the last pose when it
-  fails) -> track_local_map -> accept or reject (min_inliers_ok, OF
-  confirmations discounted) -> NeedNewKeyFrame -> on a keyframe, one
+  [m12 feed: pack on the host, unpack on the device] -> motion-model pose
+  prediction -> build_frame -> [use_icp: GICP/NDT registration against the
+  last frame as the pose predictor] -> [use_of: the dual-stream optical
+  flow fills the frame's OF slots] -> track_with_motion_model ->
+  track_local_map -> accept or reject (min_inliers_ok, OF confirmations
+  discounted) -> NeedNewKeyFrame -> on a keyframe, one
   local_mapping.mapping_step -> trajectory record (t, T_cr, ref KF).
 The OF and ICP stages follow the reference's fused frame step
 (geoflowslam_tpu/pipeline/fused.py): a registration is accepted only when it
@@ -17,19 +17,36 @@ ICP-carried: state OK at the registered pose, the motion model learns the
 registered delta, and a keyframe without bindings every 0.5 s.
 The host reads the inlier counts once per stage and the pose once per frame;
 there is no deferred decision ring and no reader thread: a local card needs
-neither. Initialization is StereoInitialization.
+neither. Initialization is StereoInitialization. A KF-stall watchdog counts
+(`kf_stall_warnings`) and warns when no keyframe has landed for 10 s of
+tracking.
+
+A frame whose track fails is handled in one of two modes, as the reference's
+façade handles it:
+* fused (the reference's default path): with a vocabulary and without
+  `record_reproj_err`. The failed frame holds the last pose, keeps the
+  motion model and the bindings and goes RECENTLY_LOST at once. Every later
+  frame while RECENTLY_LOST, and every frame once an ICP-carried streak
+  reaches 30, runs the recovery step when its track fails
+  (pipeline/reloc.recover_frame: a 40 px re-search from the predicted pose,
+  else relocalization, adopted at >= max(min_inliers_ok, 30) inliers): the
+  matched KF becomes the reference, the motion model identity, the pose is
+  recorded without a reference KF. After `time_recently_lost` the state
+  goes LOST and a new Atlas map starts.
+* staged: with `record_reproj_err` (which also fills `f2f_reproj` and
+  `f2m_reproj`), or without a vocabulary. The failed frame retries wider
+  from the last pose, then (with a vocabulary) TrackReferenceKeyFrame;
+  failing that it drops the motion model, and every RECENTLY_LOST frame,
+  the first included, tries to relocalize (accepted at min_inliers_ok).
 
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
-closing); a failed frame falls back to TrackReferenceKeyFrame, and every
-RECENTLY_LOST frame tries to relocalize (pipeline/reloc.py) before the
-state times out to LOST and a new Atlas map. With `cfg.loop` as well, each
-KF runs place recognition after its mapping step, and a verified loop is
-closed at once (pipeline/loop_closing.py: Atlas merge or pose graph, seam
-welding), the current pose carried along and the global BA restarted as
-per-frame micro-steps (local_mapping.AsyncGBA). These follow the
-reference's staged semantics: loop detection acts at the KF rather than
-`fused_lag` frames later.
+closing). With `cfg.loop` as well, each KF runs place recognition after
+its mapping step, and a verified loop is closed at once
+(pipeline/loop_closing.py: Atlas merge or pose graph, seam welding), the
+current pose carried along and the global BA restarted as per-frame
+micro-steps (local_mapping.AsyncGBA). Loop detection acts at the KF rather
+than `fused_lag` frames later, in both modes.
 """
 from __future__ import annotations
 
@@ -42,6 +59,7 @@ import numpy as np
 import torch
 
 from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
@@ -54,6 +72,7 @@ from geoflowslam_tpu_torch.retrieval import vocab as Vv
 from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
+from geoflowslam_tpu_torch.utils.timers import StageTimers
 
 
 class TrackingState(enum.Enum):
@@ -69,7 +88,6 @@ def check_config(cfg: SystemConfig) -> None:
     off = {"imu": cfg.imu is None,
            "use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
            "stereo_fisheye": cfg.stereo_fisheye is None,
-           "record_reproj_err": not cfg.record_reproj_err,
            "local_ba_every_kf=False": cfg.local_ba_every_kf,
            f"sensor={cfg.sensor!r}": cfg.sensor == "rgbd"}
     bad = [name for name, ok in off.items() if not ok]
@@ -148,7 +166,16 @@ class SlamSystem:
             if self.vocab is not None and self.loop_closer is None else None)
         self._reloc_gen = torch.Generator(device=dev)
         self._reloc_gen.manual_seed(1234)
-        self.n_reloc = 0              # successful relocalizations
+        self.n_reloc = 0              # relocalizations adopted
+        self.n_recovered = 0          # frames adopted by recover_frame
+        # KF-stall watchdog, per-stage wall times, and with
+        # record_reproj_err the per-frame (t, mean px error, inliers) of the
+        # motion-model and local-map stages
+        self.kf_stall_warnings = 0
+        self._last_stall_warn = -1e18
+        self.timers = StageTimers()
+        self.f2f_reproj: list = []
+        self.f2m_reproj: list = []
         self._gba = LM.AsyncGBA(self.mcfg) if cfg.loop is not None else None
         # slot -> (cloud, valid) of the last 40 KFs with use_icp, for the
         # loop closer's use_icp_loop refinement
@@ -158,21 +185,24 @@ class SlamSystem:
 
     def track_rgbd(self, gray, depth, timestamp: float) -> np.ndarray:
         """Track one frame (gray [H, W] 0..255, depth [H, W] in metres x
-        depth_map_factor, numpy or tensors). Returns Twc 4x4 (float64)."""
-        gray = torch.as_tensor(gray).to(self.device)
-        depth = torch.as_tensor(depth).to(self.device)
+        depth_map_factor, numpy or tensors; with feed_codec "m12" also an
+        already-packed 1-D uint8 buffer, depth then unused). Returns Twc 4x4
+        (float64)."""
+        gray, depth = self._encode_feed(gray, depth)
         self._t_rel(timestamp)
         if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
                 and timestamp < self.last_time):
             warnings.warn("frame timestamp older than the previous frame: "
                           "resetting the active map")
             self.reset_active_map()
-        frame = build_frame(gray, depth, self.cfg.frame, self.cfg.fx,
-                            self.cfg.fy, self.cfg.cx, self.cfg.cy)
-        if self.state == TrackingState.NOT_INITIALIZED:
-            self._initialize(frame, timestamp)
-        else:
-            frame = self._track_frame(frame, timestamp)
+        twc = None
+        with self.timers.time("Track_total"):
+            frame = build_frame(gray, depth, self.cfg.frame, self.cfg.fx,
+                                self.cfg.fy, self.cfg.cx, self.cfg.cy)
+            if self.state == TrackingState.NOT_INITIALIZED:
+                self._initialize(frame, timestamp)
+            else:
+                frame, twc = self._track_frame(frame, timestamp)
         if self._gba is not None and self._gba.active and self._gba.step():
             self._finish_gba()
         if self.cfg.use_of or self.cfg.use_icp:
@@ -180,7 +210,20 @@ class SlamSystem:
         self.last_time = timestamp
         self.n_frames += 1
         self.last_levels = frame.feat.level
-        return self._record_pose(timestamp)
+        return twc if twc is not None else self._record_pose(timestamp)
+
+    def _encode_feed(self, gray, depth):
+        """The configured feed on the device: with feed_codec "m12" a
+        (gray, depth) pair is packed on the host (io/feed_codec.pack_m12)
+        and an already-packed 1-D buffer passes through; depth is then
+        None."""
+        if self.cfg.frame.feed_codec == "m12" and np.ndim(gray) != 1:
+            gray = FC.pack_m12(_host(gray), _host(depth),
+                               self.cfg.frame.depth_map_factor)
+        gray = torch.as_tensor(gray).to(self.device)
+        if gray.dim() == 1:
+            return gray, None
+        return gray, torch.as_tensor(depth).to(self.device)
 
     def map_stats(self):
         return {
@@ -323,9 +366,10 @@ class SlamSystem:
         else:
             self._reloc_db = db
 
-    def _track_frame(self, frame: FrameData, timestamp: float) -> FrameData:
+    def _track_frame(self, frame: FrameData, timestamp: float):
         """Track one frame after initialization; returns the frame with its
-        OF slots filled (the next frame's optical-flow source)."""
+        OF slots filled (the next frame's optical-flow source) and the Twc it
+        recorded mid-step, or None when the pose is still to record."""
         cfg = self.cfg
         min_ok = cfg.min_inliers_ok
         last_rot, last_t = self.cur_rot, self.cur_t
@@ -349,14 +393,15 @@ class SlamSystem:
                                         pt, self.tcfg, self.last_levels,
                                         extra_obs=extra_obs)
         n1 = int(res.n_inliers)
-        if n1 < min_ok:
+        fused = self._fused_mode()
+        if n1 < min_ok and not fused:
             # search wider from the unpredicted pose
             wide = dataclasses.replace(self.tcfg, search_radius_mm=40.0)
             res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp,
                                             last_rot, last_t, wide,
                                             self.last_levels)
             n1 = int(res.n_inliers)
-        if n1 < min_ok and self.vocab is not None:
+        if n1 < min_ok and not fused and self.vocab is not None:
             # BoW-gated matching against the reference KF
             wf = Vv.descend(self.vocab, frame.feat.desc, frame.feat.valid)
             wk = Vv.descend(self.vocab, self.ms.kf_desc[self.ref_kf],
@@ -366,7 +411,8 @@ class SlamSystem:
                                              self.tcfg)
             n1 = int(res.n_inliers)
         ms2, res2 = self.ms, res
-        if n1 >= min_ok:
+        if n1 >= min_ok or fused:
+            # the fused step runs the local-map stage on every frame
             if self.local_masks is None:
                 self.local_masks = M.local_window(
                     self.ms, self.ref_kf, self.tcfg.local_window,
@@ -383,6 +429,12 @@ class SlamSystem:
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
+        if cfg.record_reproj_err:
+            for log, r, n in ((self.f2f_reproj, res, n1),
+                              (self.f2m_reproj, res2, n2)):
+                e = T.mean_reproj_error(self.ms, frame, r.obs_mp, r.rot, r.t,
+                                        self.tcfg)
+                log.append((timestamp, float(e), n))
 
         if n2 >= min_ok:
             self.state = TrackingState.OK
@@ -392,9 +444,22 @@ class SlamSystem:
             self._set_pose(res2.rot, res2.t, last_rot, last_t)
             self.last_obs_mp = res2.obs_mp
             self.frames_since_kf += 1
+            self._kf_watchdog(timestamp)
+            twc = None
             if self._need_new_keyframe(n2):
+                if not cfg.record_reproj_err:
+                    # the reference's frame step records the tracked pose
+                    # against the reference KF before the KF's mapping
+                    twc = self._record_pose(timestamp)
                 self._insert_keyframe(frame, timestamp, res2, n2)
-            return frame
+            return frame, twc
+        if fused and (self.state == TrackingState.RECENTLY_LOST
+                      or self._carried_streak >= 30):
+            rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
+                                  self.ref_kf, self.last_levels, self.tcfg,
+                                  min_ok, self._reloc_attempt)
+            if rec is not None:
+                return frame, self._adopt_recovery(rec, timestamp)
         if icp_ok is not None and bool(icp_ok):
             # ICP-carried: the registered pose is the track; the map and
             # the visual bindings stay as they were
@@ -408,36 +473,88 @@ class SlamSystem:
                 no_obs = torch.full_like(res.obs_mp, M.NO_MP)
                 self._insert_keyframe(frame, timestamp,
                                       T.TrackResult(pr, pt, no_obs, 0), 0)
-            return frame
+            self._kf_watchdog(timestamp)
+            return frame, None
         self.n_lost += 1
-        self.has_vel = False
+        if fused:
+            # hold the last pose, motion model and bindings; recovery runs
+            # from the next frame on
+            self._lost_stamps.add(round(timestamp, 6))
+        else:
+            self.has_vel = False
         if self.state == TrackingState.OK:
             self.state = TrackingState.RECENTLY_LOST
             self.lost_since = timestamp
-        if self.state == TrackingState.RECENTLY_LOST:
-            if self._relocalize(frame):
-                self.state = TrackingState.OK
-                self.lost_since = None
-            elif timestamp - self.lost_since > self.cfg.time_recently_lost:
-                self.state = TrackingState.LOST
-                self._reset_or_new_map()
-        return frame
+        if (self.state == TrackingState.RECENTLY_LOST and not fused
+                and self._relocalize(frame)):
+            self.state = TrackingState.OK
+            self.lost_since = None
+            return frame, None
+        if self.state == TrackingState.RECENTLY_LOST and (
+                timestamp - self.lost_since > self.cfg.time_recently_lost):
+            self.state = TrackingState.LOST
+            self._reset_or_new_map()
+        return frame, None
+
+    def _fused_mode(self) -> bool:
+        """The reference's default recovery (see the module docstring)."""
+        return self.vocab is not None and not self.cfg.record_reproj_err
+
+    def _adopt_recovery(self, rec: R.Recovery,
+                        timestamp: float) -> np.ndarray:
+        """A frame recovered by recover_frame: its pose and bindings, the
+        motion model reset, the matched KF as reference (when live), the
+        local window rebuilt on the next frame; returns the pose, recorded
+        without a reference KF."""
+        self.cur_rot, self.cur_t = rec.rot, rec.t
+        self.last_obs_mp = rec.obs_mp
+        self.vel = (torch.eye(3, device=self.device),
+                    torch.zeros(3, device=self.device))
+        self.has_vel = True
+        if rec.kf in self._kf_gen and bool(self.ms.kf_valid[rec.kf]):
+            self.ref_kf = rec.kf
+        self.local_masks = None
+        self._carried_streak = 0
+        self.frames_since_kf += 1
+        self.state = TrackingState.OK
+        self.lost_since = None
+        self.n_recovered += 1
+        self.n_reloc += rec.relocalized
+        return self._record_pose(timestamp, with_ref=False)
+
+    def _reloc_attempt(self, frame: FrameData):
+        """One reloc_core call on the active map (one K4 launch on the
+        card): (n_inl, rot, t, obs_mp, cand)."""
+        return R.reloc_core(
+            self.vocab, self.reloc_db, self.ms, frame, self._reloc_gen,
+            self.tcfg, self.cfg.frame.orb.width, self.cfg.frame.orb.height)
 
     def _relocalize(self, frame: FrameData) -> bool:
         """Tracking::Relocalization over the top-3 BoW candidates of the
-        active map; adopts the pose when pose-only GN keeps min_inliers_ok
-        inliers."""
+        active map (the staged mode); adopts the pose when pose-only GN
+        keeps min_inliers_ok inliers."""
         if self.vocab is None:
             return False
-        n_inl, rot, t, obs2, _ = R.reloc_core(
-            self.vocab, self.reloc_db, self.ms, frame, self._reloc_gen,
-            self.tcfg, self.cfg.frame.orb.width, self.cfg.frame.orb.height)
+        n_inl, rot, t, obs2, _ = self._reloc_attempt(frame)
         if int(n_inl) < self.cfg.min_inliers_ok:
             return False
         self.cur_rot, self.cur_t = rot, t
         self.last_obs_mp = obs2
         self.n_reloc += 1
         return True
+
+    def _kf_watchdog(self, timestamp: float):
+        """Count and warn, at most every 10 s, when no keyframe has landed
+        for more than 10 s while tracking holds."""
+        if (timestamp - self._last_kf_time > 10.0
+                and timestamp - self._last_stall_warn > 10.0):
+            self._last_stall_warn = timestamp
+            self.kf_stall_warnings += 1
+            warnings.warn(
+                f"KF-stall watchdog: no keyframe for "
+                f"{timestamp - self._last_kf_time:.1f}s while tracking OK "
+                f"(frames_since_kf={self.frames_since_kf}, "
+                f"carried_streak={self._carried_streak})")
 
     def _set_pose(self, rot, t, last_rot, last_t):
         """Adopt Tcw and learn the motion model Tcl = Tcw Tlw^-1, its
@@ -490,22 +607,28 @@ class SlamSystem:
     def _insert_keyframe(self, frame: FrameData, timestamp: float,
                          res: T.TrackResult, n_inliers: int):
         slot = self._free_kf_slot()
-        ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
-            self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
-            res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg)
-        culled_i = int(culled)
+        with self.timers.time("New_KF"):
+            # ends in the read of `culled`: includes the step's device work
+            ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
+                self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
+                res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg)
+            culled_i = int(culled)
         if culled_i >= 0:
             self._on_kf_culled(ms, culled_i)
         self.ms = ms
         self.local_masks = masks
         # the tracked pose is the KF's pose before BA: fold BA's correction
         # of the KF into it (cur o old^-1 o new); the frame-to-frame motion
-        # model is invariant to this right-side world correction
+        # model is invariant to this right-side world correction. The
+        # reference's frame step keeps the frame's tracked bindings (the
+        # KF's new close points join through the local map); its staged
+        # path tracks on from the KF's bindings after mapping
         ri, ti = lie.se3_inverse(res.rot, res.t)
         dr, dt = lie.se3_compose(ri, ti, kf_rot, kf_t)
         self.cur_rot, self.cur_t = lie.se3_compose(self.cur_rot, self.cur_t,
                                                    dr, dt)
-        self.last_obs_mp = new_obs
+        if self.cfg.record_reproj_err:
+            self.last_obs_mp = new_obs
         self.ref_kf = slot
         self.ref_kf_inliers = n_inliers
         self.frames_since_kf = 0
@@ -585,13 +708,14 @@ class SlamSystem:
             self.ms = M.create_new_map(self.ms)
         self._restart()
 
-    def _record_pose(self, timestamp: float) -> np.ndarray:
-        """Record the pose relative to the reference KF, with one device
-        read of the current and the reference KF pose."""
+    def _record_pose(self, timestamp: float,
+                     with_ref: bool = True) -> np.ndarray:
+        """Record the pose relative to the reference KF (or alone), with one
+        device read of the current and the reference KF pose."""
         if self.state in (TrackingState.RECENTLY_LOST, TrackingState.LOST):
             self._lost_stamps.add(round(timestamp, 6))
         ref = self.ref_kf
-        gen = self._kf_gen.get(ref)
+        gen = self._kf_gen.get(ref) if with_ref else None
         both = torch.stack([
             torch.cat([self.cur_rot, self.cur_t[:, None]], 1),
             torch.cat([self.ms.kf_rot[ref], self.ms.kf_t[ref][:, None]], 1),
@@ -606,6 +730,10 @@ class SlamSystem:
         self._traj.append((timestamp, twc, ref, gen,
                            np.concatenate([r_cr, t_cr[:, None]], 1)))
         return twc
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def _twc(r_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:

@@ -11,6 +11,8 @@
   window candidates, frustum gates, projection search, pose-only GN, the
   found/visible counters.
 * `create_keyframe`         <- CreateNewKeyFrame, RGB-D close points.
+* `mean_reproj_error`       <- the per-frame mFrame2FrameReprojErr /
+  mFrame2MapReprojErr bookkeeping.
 
 Where two sources scatter to one keypoint slot the highest source row wins,
 as XLA's sequential scatter does (ops/indexing.scatter_set).
@@ -222,6 +224,20 @@ def track_local_map(ms: M.MapState, frame: FrameData, obs_mp: torch.Tensor,
     ms = ms._replace(mp_visible=ms.mp_visible + visible_add + found_add,
                      mp_found=ms.mp_found + found_add)
     return ms, TrackResult(rot2, t2, final_obs, n_inl)
+
+
+def mean_reproj_error(ms: M.MapState, frame: FrameData, obs_mp, rot, t,
+                      cfg: TrackConfig) -> torch.Tensor:
+    """Mean pixel reprojection error over the frame's bound map points in
+    front of the camera (0 when there is none)."""
+    feat = frame.feat
+    safe = torch.clamp_min(obs_mp, 0).long()
+    has = (obs_mp >= 0) & feat.valid & ms.mp_valid[safe]
+    uv, z, _ = _project(rot, t, ms.mp_pos[safe], cfg)
+    err = torch.linalg.norm(uv - feat.uv, dim=1)
+    ok = has & (z > 0.1)
+    return (torch.sum(torch.where(ok, err, 0.0))
+            / torch.clamp_min(torch.sum(ok.float()), 1.0))
 
 
 def create_keyframe(ms: M.MapState, frame: FrameData, rot, t, time: float,

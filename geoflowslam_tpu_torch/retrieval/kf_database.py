@@ -22,7 +22,7 @@ class KFDatabase(NamedTuple):
     valid: torch.Tensor   # [K_MAX] bool
 
     @staticmethod
-    def create(k_max: int, n_words: int, device="cpu") -> "KFDatabase":
+    def create(k_max: int, n_words: int, device) -> "KFDatabase":
         return KFDatabase(
             bow=torch.zeros((k_max, n_words), dtype=torch.float32,
                             device=device),

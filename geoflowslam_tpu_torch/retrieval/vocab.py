@@ -45,7 +45,7 @@ class Vocabulary(NamedTuple):
 
 
 def _from_numpy(centers, weights, k: int, levels: int,
-                device="cpu") -> Vocabulary:
+                device) -> Vocabulary:
     cs = tuple(torch.from_numpy(np.ascontiguousarray(
         np.asarray(c, np.uint32)).view(np.int32).copy()).to(device)
         for c in centers)
@@ -90,8 +90,8 @@ def _kmedians_binary(desc: np.ndarray, k: int, iters: int, rng) -> np.ndarray:
 
 
 def build_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
-                     iters: int = 6, seed: int = 0,
-                     device="cpu") -> Vocabulary:
+                     iters: int = 6, seed: int = 0, *,
+                     device) -> Vocabulary:
     """Hierarchical k-medians over [N, 8] descriptor words (uint32 or int32
     with the same bits), host-side and offline like DBoW2's create()."""
     rng = np.random.RandomState(seed)
@@ -119,7 +119,7 @@ def build_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
     return _from_numpy(level_centers, idf, k, levels, device)
 
 
-def load_vocabulary(path, device="cpu") -> Vocabulary:
+def load_vocabulary(path, device) -> Vocabulary:
     """Read a vocabulary npz (the reference's save_vocabulary format)."""
     with np.load(path) as z:
         levels = int(z["levels"])
@@ -130,7 +130,7 @@ def load_vocabulary(path, device="cpu") -> Vocabulary:
 _DEFAULT: dict = {}
 
 
-def default_vocabulary(device="cpu") -> Vocabulary:
+def default_vocabulary(device) -> Vocabulary:
     """The shipped vocabulary (k = 10, 4 levels, 10 000 words), cached per
     device."""
     key = str(torch.device(device))

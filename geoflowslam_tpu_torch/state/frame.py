@@ -1,5 +1,6 @@
 """Frame construction: images -> padded features, depth and cloud (port of
-the RGB-D branch of geoflowslam_tpu/state/frame.py::build_frame, raw feed).
+the RGB-D branch of geoflowslam_tpu/state/frame.py::build_frame, with the
+raw feed and the packed m12 feed, io/feed_codec.py).
 
 CLAHE, ORB extraction, depth association (virtual right-camera u from bf),
 the voxel-downsampled depth cloud and the LK pyramid, as one FrameData of
@@ -15,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from geoflowslam_tpu_torch.config import FrameConfig
+from geoflowslam_tpu_torch.io.feed_codec import unpack_m12_torch
 from geoflowslam_tpu_torch.ops import klt as klt_ops
 from geoflowslam_tpu_torch.ops import pointcloud as pc
 from geoflowslam_tpu_torch.ops import pyramid as pyr_ops
@@ -39,18 +41,23 @@ def check_supported(cfg: FrameConfig) -> None:
         unsupported.append("distortion / non-pinhole camera")
     if cfg.lidar_features:
         unsupported.append("lidar_features")
-    if cfg.feed_codec != "raw":
+    if cfg.feed_codec not in ("raw", "m12"):
         unsupported.append(f"feed_codec={cfg.feed_codec!r}")
     if unsupported:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(unsupported))
 
 
-def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: FrameConfig,
-                fx, fy, cx, cy) -> FrameData:
+def build_frame(gray: torch.Tensor, depth: Optional[torch.Tensor],
+                cfg: FrameConfig, fx, fy, cx, cy) -> FrameData:
     """gray: [H, W] 0..255 (any real dtype); depth: [H, W] depth x
-    depth_map_factor. Both are cast to float32 on their device."""
+    depth_map_factor. Both are cast to float32 on their device. A 1-D uint8
+    `gray` is an m12 buffer (cfg.feed_codec == "m12"; `depth` is ignored),
+    unpacked on its device into gray and depth in input units."""
     check_supported(cfg)
+    if gray.dim() == 1:
+        gray, depth = unpack_m12_torch(gray, cfg.orb.height, cfg.orb.width,
+                                       cfg.depth_map_factor)
     gray = gray.float()
     depth = depth.float()
     img = pyr_ops.clahe(gray) if cfg.use_clahe else gray

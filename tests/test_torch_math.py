@@ -75,7 +75,7 @@ def test_synthetic_render_matches():
     cam_j = JS.Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)
     cam_t = TS.Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)
     seq_j = JS.SyntheticSequence(JS.SyntheticWorld(cam_j), fps=10.0)
-    seq_t = TS.SyntheticSequence(TS.SyntheticWorld(cam_t), fps=10.0)
+    seq_t = TS.SyntheticSequence(TS.SyntheticWorld(cam_t, device="cpu"), fps=10.0)
     for t in (0.0, 1.7, 4.2):
         gj, dj, (rj, tj) = seq_j.frame(t)
         gt, dt, (rt, tt) = seq_t.frame(t)

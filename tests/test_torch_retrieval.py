@@ -41,13 +41,13 @@ def _t(a):
 
 def test_default_vocabulary_is_read_as_data():
     jv = JV.default_vocabulary()
-    tv = TV.default_vocabulary()
+    tv = TV.default_vocabulary("cpu")
     assert (tv.k, tv.levels, tv.n_words) == (jv.k, jv.levels, 10_000)
     for a, b in zip(jv.centers, tv.centers):
         np.testing.assert_array_equal(b.numpy().view(np.uint32),
                                       np.asarray(a))
     np.testing.assert_array_equal(tv.weights.numpy(), np.asarray(jv.weights))
-    assert TV.default_vocabulary() is tv             # cached
+    assert TV.default_vocabulary("cpu") is tv             # cached
 
 
 def test_popcount32_matches_bit_count():
@@ -61,7 +61,7 @@ def test_popcount32_matches_bit_count():
 
 def test_descend_and_bow_on_default_vocabulary():
     jv = JV.default_vocabulary()
-    tv = TV.default_vocabulary()
+    tv = TV.default_vocabulary("cpu")
     rs = np.random.RandomState(1)
     desc = _desc(rs, 400)
     # descriptors near the vocabulary's own words, so the descent has real
@@ -94,7 +94,7 @@ def test_build_vocabulary_identical():
     desc[100:150] = desc[:50] ^ np.uint32(3)
     jv = JV.build_vocabulary(desc, k=4, levels=2, iters=2, seed=5)
     tv = TV.build_vocabulary(desc.view(np.int32), k=4, levels=2, iters=2,
-                             seed=5)
+                             seed=5, device="cpu")
     for a, b in zip(jv.centers, tv.centers):
         np.testing.assert_array_equal(b.numpy().view(np.uint32),
                                       np.asarray(a))

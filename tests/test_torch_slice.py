@@ -96,7 +96,7 @@ def test_lost_reset_and_reinit():
                             lk_levels=2, cloud_stride=8, cloud_max_pts=256,
                             bf=10.0))
     cam = TS.Camera(fx=100.0, fy=100.0, cx=w / 2, cy=h / 2, width=w, height=h)
-    seq = TS.SyntheticSequence(TS.SyntheticWorld(cam), fps=10.0)
+    seq = TS.SyntheticSequence(TS.SyntheticWorld(cam, device="cpu"), fps=10.0)
     slam = SlamSystem(cfg, device="cpu")
     states = []
     for t in (0.0, 0.1, 0.2):

@@ -10,9 +10,9 @@ SlamSystem run the same frames; both must meet test_e2e_loop.py's gates
 with the same number of maps, and the port's poses on tracked frames stay
 within max(2 cm, the reference's own ATE) of the reference's.
 
-The reference runs its staged path (record_reproj_err=True keeps it off the
-fused step; pkt_max_pending=0): loop detection at the KF and
-relocalization on every lost frame, as the port's synchronous façade does.
+Both run their staged path (record_reproj_err=True keeps each off its
+fused recovery; the reference with pkt_max_pending=0): loop detection at
+the KF and relocalization on every lost frame.
 Its fused path lags loop detection by fused_lag frames and exports the
 poses of its in-dispatch recovery frames even when they are metres off, so
 it is no yardstick here. The staged path drops the motion model after each
@@ -95,6 +95,7 @@ def configs(k_max=24, loop=None, **kw):
                 record_reproj_err=True,
                 loop=JLC.LoopConfig(**loop) if loop else None, **sc)
     tcfg = C.SystemConfig(frame=C.FrameConfig(orb=C.OrbConfig(**orb), **fc),
+                          record_reproj_err=True,
                           loop=C.LoopConfig(**loop) if loop else None, **sc)
     return jcfg, tcfg
 
@@ -435,7 +436,7 @@ def test_icp_loop_takes_the_registration(world, verified, monkeypatch):
     lc = TLC.LoopCloser(convert.vocabulary(world[1], "cpu"), tcfg.k_max,
                         C.LoopConfig(**LOOP, use_icp_loop=True,
                                      run_weld=False),
-                        map_cfg=tcfg.map_cfg())
+                        map_cfg=tcfg.map_cfg(), device="cpu")
     monkeypatch.setattr(lc, "_verify",
                         lambda *a: (True, s, rot, t, 100, 100))
     _, found = lc.complete_candidate(convert.map_state(ms, "cpu"), cur,
@@ -458,7 +459,8 @@ def test_drift_budget_gate(world, verified):
     cur, cand = verified["cur"], verified["cand"]
     _, tcfg = configs(loop=LOOP)
     lc = TLC.LoopCloser(convert.vocabulary(world[1], "cpu"), tcfg.k_max,
-                        C.LoopConfig(**LOOP), map_cfg=tcfg.map_cfg())
+                        C.LoopConfig(**LOOP), map_cfg=tcfg.map_cfg(),
+                        device="cpu")
     r1, t1 = ms.kf_rot[cur], ms.kf_t[cur]
     r2, t2 = ms.kf_rot[cand], ms.kf_t[cand]
     r_o = r2 @ r1.T

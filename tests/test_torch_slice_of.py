@@ -114,7 +114,7 @@ def test_icp_carries_textureless_frames():
                             bf=10.0))
     cam = TS.Camera(fx=100.0, fy=100.0, cx=w / 2, cy=h / 2, width=w,
                     height=h)
-    seq = TS.SyntheticSequence(TS.SyntheticWorld(cam), fps=10.0)
+    seq = TS.SyntheticSequence(TS.SyntheticWorld(cam, device="cpu"), fps=10.0)
     slam = SlamSystem(cfg, device="cpu")
     blank = torch.full((h, w), 128.0)
     gt, kfs = [], []

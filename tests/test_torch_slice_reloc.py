@@ -5,8 +5,8 @@ camera in place by 90 degrees down to the floor (the last reference KF then
 shares no view with the start), lose it on blank frames (time_recently_lost large, no
 new-map escape), then revisit an early view with image noise. Neither the
 motion model nor TrackReferenceKeyFrame can recover that view, so the
-recovery is a relocalization. The port and a JAX SlamSystem (its staged
-path, see test_torch_slice_loop.py) run the same frames. Both must
+recovery is a relocalization. The port and a JAX SlamSystem (both on their
+staged path, see test_torch_slice_loop.py) run the same frames. Both must
 relocalize without a new map and, after three clean frames, sit within
 10 cm of their own first-pass pose at that view; they end with the same
 number of maps. The port's poses on tracked frames stay within max(2 cm,
@@ -184,6 +184,10 @@ def test_port_meets_the_gates_and_tracks_the_reference(world, reference,
                                                        port):
     _gates(port, port["slam"].cfg.min_inliers_ok)
     assert port["slam"].n_reloc >= 1
+    # record_reproj_err logs both stages of every tracked frame, as the
+    # reference's staged path does
+    ps, rs = port["slam"], reference["slam"]
+    assert len(ps.f2f_reproj) == len(ps.f2m_reproj) == len(rs.f2f_reproj) > 0
     assert port["stats"]["n_maps"] == reference["stats"]["n_maps"]
     gt = world[2]
     rt, pt = reference["traj"], port["traj"]
