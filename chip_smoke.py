@@ -88,7 +88,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the end, ATE < 5 cm and RPE < 3 cm on the tracked frames, finite
      poses, no KF-stall warning, the fused K1 once per frame, K2 launched,
      K4 exactly once per relocalization attempt; n_lost, n_recovered (frames
-     the recovery step took), n_reloc and ms per frame (median, p90).
+     the recovery step took), n_reloc and ms per frame (median, p90);
+ 12. inertial: the RGB-D-inertial path at bench.py's configuration
+     (inertial_config: the hard phase's widths with fx 400, k_max 256, m_max
+     65536, ImuConfig(init_min_kfs=4, init_min_time=0.8), LoopConfig(), the
+     shipped vocabulary) over INERTIAL_FRAMES frames (14 s at 30 fps) of
+     the synthetic room with 200 Hz IMU samples through
+     SlamSystem.track_rgbd_inertial on m12 buffers: OK with 1 map, the IMU
+     initialized, VIBA1 and VIBA2 done, ATE over the second half < 5 cm,
+     |v| finite and < 3 m/s, the fused K1 once per frame, K2 launched, K4
+     exactly once per loop check and relocalization attempt; frames and ms
+     per imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by
+     window width, host syncs a frame (CUDA sync debugging over 30 frames).
 Each path's launch counts are set to 0 just before it and read just after;
 every path launches the fused K1 once per frame and the per-level K1 and K3
 never. Every kernel has three times: `ms`, the CUDA-event median around its
@@ -100,7 +111,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the five paths and nothing else) with `launch_floor_ms` beside it; the
+over the six paths and nothing else) with `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -118,8 +129,10 @@ import torch
 import torch.nn.functional as F
 
 from geoflowslam_tpu_torch import kernels
-from geoflowslam_tpu_torch.config import LoopConfig, SystemConfig
+from geoflowslam_tpu_torch.config import (FrameConfig, ImuConfig, LoopConfig,
+                                          OrbConfig, SystemConfig)
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
+from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.io.synthetic import (Camera, HardSyntheticSequence,
                                                 SyntheticSequence,
                                                 SyntheticWorld)
@@ -127,6 +140,7 @@ from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
+from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.retrieval import vocab as V
@@ -158,6 +172,9 @@ FPS = 30.0
 OF_FPS = 10.0
 RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
 HARD_FRAMES = 600    # the hard path: 20 s, into the first texture-poor window
+INERTIAL_FRAMES = 420   # the inertial path: 14 s at 30 fps (IMU init ~1 s,
+                        # VIBA1 at +5 s, VIBA2 at +10 s)
+SYNC_WINDOW = (300, 330)   # inertial frames whose host syncs are counted
 LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 # K3 vs plain on the card. Samples, template and gradients are equal bit for
 # bit (same float32 operations); only the 441- or 961-term sums run in
@@ -1116,6 +1133,149 @@ def phase_hard(summary, voc):
            {"gated_hamming_search": None, "hamming_best2": len(attempts)})
 
 
+def inertial_config() -> SystemConfig:
+    """bench.py's operating point (bench.py:80-106) on the port: 640x480,
+    fx 400, bf 40, the m12 feed, 1000 features, 8 levels, lk_levels 4,
+    cloud_stride 4, 4096 cloud points, k_max 256, m_max 65536, an IMU
+    initialized early (init_min_kfs 4, init_min_time 0.8 s), LoopConfig()."""
+    orb = OrbConfig(n_features=1000, n_levels=8, height=480, width=640)
+    fc = FrameConfig(orb=orb, lk_levels=4, cloud_stride=4, cloud_max_pts=4096,
+                     depth_map_factor=1.0, feed_codec="m12")
+    return SystemConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0, bf=40.0,
+                        frame=fc, imu=ImuConfig(init_min_kfs=4,
+                                                init_min_time=0.8),
+                        loop=LoopConfig())
+
+
+def _count_syncs(fn):
+    """Run fn() with CUDA sync debugging on; returns (its result, the
+    number of synchronizing calls it made)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, n
+
+
+def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
+    """The RGB-D-inertial path at bench.py's configuration
+    (inertial_config): n_frames of the synthetic room's smooth trajectory
+    at 30 fps with 200 Hz IMU samples (at most 32 a frame) through
+    SlamSystem.track_rgbd_inertial on m12 buffers pre-packed on the card,
+    the shipped vocabulary, loop closing on. Gates: state OK with 1 map,
+    the IMU initialized, VIBA1 and VIBA2 done, ATE over the second half
+    < 5 cm, the final velocity finite and < 3 m/s, the fused K1 once per
+    frame, K2 launched, K4 exactly once per loop check and relocalization
+    attempt. Prints the frames and ms per imu_mode (median, p90), the VI
+    accepted share, VI-BA ms per KF by window width, and the host syncs a
+    frame over SYNC_WINDOW (CUDA sync debugging; those frames are left out
+    of the times)."""
+    dev = torch.device("cuda")
+    cfg = inertial_config()
+    seq = _room(cfg, FPS)
+    ts = np.arange(n_frames) / FPS
+    t0 = time.perf_counter()
+    bufs, imu, gt = [], [None], []
+    for i in range(n_frames):
+        g, d, (rot_cw, t_cw) = seq.frame(ts[i])
+        bufs.append(FC.pack_m12_torch(g, d))
+        if i > 0:
+            imu.append(tuple(x.cpu().numpy() for x in seq.imu_between(
+                ts[i - 1], ts[i], cfg.imu.max_samples_per_frame)))
+        r = rot_cw.cpu().numpy().astype(np.float64)
+        twc = np.eye(4)
+        twc[:3, :3] = r.T
+        twc[:3, 3] = -r.T @ t_cw.cpu().numpy()
+        gt.append((ts[i], twc))
+    bufs = [b.cpu().numpy() for b in bufs]
+    print(f"[inertial] pre-rendered {n_frames} m12 frames 640x480 and their "
+          f"IMU samples in {time.perf_counter() - t0:.2f} s")
+    slam = SlamSystem(cfg, dev, vocab=voc)
+    checks, attempts, viba = [], [], []
+    _timed(slam.loop_closer, "_verify", checks)
+    _timed(slam, "_reloc_attempt", attempts)
+    vi_ba_step = LM.vi_ba_step
+
+    def timed_vi_ba(ms, win, mcfg):
+        t1 = time.perf_counter()
+        out = vi_ba_step(ms, win, mcfg)
+        torch.cuda.synchronize()
+        viba.append((win.slots.shape[0], (time.perf_counter() - t1) * 1e3))
+        return out
+    LM.vi_ba_step = timed_vi_ba
+    kernels.reset_launch_counts()
+    by_mode, n_syncs = {}, 0
+    try:
+        for i in range(n_frames):
+            before = dict(slam.imu_modes)
+
+            def step():
+                if i == 0:
+                    return slam.track_rgbd(bufs[i], None, ts[i])
+                return slam.track_rgbd_inertial(bufs[i], None, *imu[i],
+                                                ts[i])
+            t1 = time.perf_counter()
+            if SYNC_WINDOW[0] <= i < SYNC_WINDOW[1]:
+                _, n = _count_syncs(step)
+                n_syncs += n
+            else:
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1000.0
+            mode = next((m for m, n in slam.imu_modes.items()
+                         if n != before.get(m, 0)), "init")
+            if not SYNC_WINDOW[0] <= i < SYNC_WINDOW[1]:
+                by_mode.setdefault(mode, []).append(ms)
+    finally:
+        LM.vi_ba_step = vi_ba_step
+    launches = dict(kernels.launch_counts)
+    stats = slam.map_stats()
+    traj = slam.trajectory
+    poses = np.stack([p for _, p in traj])
+    half = n_frames // 2
+    ate = ate_rmse([e for e in traj if e[0] >= ts[half]], gt[half:])
+    imu_t = slam.imu
+    v = imu_t.body.v.cpu().numpy()
+    n_vi = sum(n for m, n in slam.imu_modes.items() if m in ("kf", "prior"))
+    print(f"[inertial] {stats}, {len(traj)} poses, ATE over the second half "
+          f"{ate['ate_rmse'] * 100:.3f} cm; IMU initialized "
+          f"{imu_t.initialized} at t = {imu_t.init_time} s, VIBA1 "
+          f"{imu_t.viba1_done}, VIBA2 {imu_t.viba2_done}; |v| "
+          f"{np.linalg.norm(v):.3f} m/s; n_lost {slam.n_lost}")
+    print(f"[inertial] frames per imu_mode {slam.imu_modes}; VI accepted "
+          f"on {slam.n_vi_accepted} of {n_vi} VI frames")
+    for mode, v_ms in sorted(by_mode.items()):
+        print(f"[inertial] ms/frame in mode {mode}: median "
+              f"{np.median(v_ms):.2f}, p90 {np.percentile(v_ms, 90):.2f} "
+              f"over {len(v_ms)} frames")
+    for kw in sorted({k for k, _ in viba}):
+        v_kw = [m for k, m in viba if k == kw]
+        print(f"[inertial] VI-BA kw {kw}: {len(v_kw)} runs, median "
+              f"{np.median(v_kw):.2f} ms, max {np.max(v_kw):.2f} ms")
+    n_win = SYNC_WINDOW[1] - SYNC_WINDOW[0]
+    print(f"[inertial] host syncs a frame over frames {SYNC_WINDOW[0]}.."
+          f"{SYNC_WINDOW[1] - 1}: {n_syncs / n_win:.2f}; {len(checks)} loop "
+          f"checks, {len(attempts)} relocalization attempts")
+    if stats["state"] != "OK" or stats["n_maps"] != 1:
+        raise AssertionError(f"inertial path ended {stats}")
+    if not (imu_t.initialized and imu_t.viba1_done and imu_t.viba2_done):
+        raise AssertionError("IMU initialization or VIBA1/VIBA2 missing")
+    if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
+        raise AssertionError("non-finite or misshapen poses")
+    if not ate["ate_rmse"] < 0.05:
+        raise AssertionError(f"inertial ATE {ate['ate_rmse']} m >= 5 cm")
+    if not (np.all(np.isfinite(v)) and np.linalg.norm(v) < 3.0):
+        raise AssertionError(f"velocity {v}")
+    _count(summary, "inertial", launches, n_frames,
+           {"gated_hamming_search": None,
+            "hamming_best2": len(checks) + len(attempts)})
+
+
 def new_summary():
     return {k: dict(name=k, route="cuda", launches=0, launches_per_frame={},
                     entry_point_launches=0, **v)
@@ -1142,6 +1302,7 @@ def main() -> int:
     phase_reloc(summary, voc)
     phase_merge(summary, voc)
     phase_hard(summary, voc)
+    phase_inertial(summary, voc)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_frame", "entry_point_launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

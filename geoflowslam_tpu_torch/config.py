@@ -3,19 +3,22 @@
 Frozen copies of the JAX package's OrbConfig (ops/extractor.py), FrameConfig
 (state/frame.py), TrackConfig (pipeline/tracking.py), MappingConfig
 (pipeline/local_mapping.py), LoopConfig (pipeline/loop_closing.py) and
-SystemConfig (pipeline/system.py), with the same fields and defaults. The
-port cannot import the JAX package (its __init__ imports jax), so the
-fields are copied here and a CPU test keeps them equal to the originals.
+ImuConfig (pipeline/inertial.py) and SystemConfig (pipeline/system.py),
+with the same fields and defaults. The port cannot import the JAX package
+(its __init__ imports jax), so the fields are copied here and a CPU test
+keeps them equal to the originals.
 
 SystemConfig carries every field of the reference, including the sensor
-options the port does not have yet (IMU, lidar, odometry, stereo fisheye,
-the m12 feed); the port's SlamSystem refuses a config that turns any of
-them on. `loop` takes this module's LoopConfig.
+options the port does not have yet (lidar, odometry, stereo fisheye); the
+port's SlamSystem refuses a config that turns any of them on. `loop` takes
+this module's LoopConfig, `imu` this module's ImuConfig.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import numpy as np
 
 TH_LOW = 50      # ORBmatcher::TH_LOW
 TH_HIGH = 100    # ORBmatcher::TH_HIGH
@@ -123,6 +126,30 @@ class LoopConfig:
     drift_budget_rate_deg: float = 0.10   # deg per second of separation
     # minimum out-of-plane extent (metres) of the Sim3 inlier consensus
     min_structure_m: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class ImuConfig:
+    freq: float = 200.0
+    noise_gyro: float = 1.7e-4
+    noise_acc: float = 2.0e-3
+    walk_gyro: float = 1.9e-5
+    walk_acc: float = 3.0e-3
+    t_bc: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.eye(4, dtype=np.float32))
+    max_samples_per_frame: int = 32
+    init_min_kfs: int = 5
+    init_min_time: float = 1.0
+    # IMU.IMUMethod: 0 = MAP-style (gyro GN + linear gravity/scale/
+    # velocity), 1 = VIG-Init (the same linear closed form), 2 = the
+    # analytic accelerometer solve that also estimates the accelerometer
+    # bias under the |g| constraint
+    imu_method: int = 0
+
+    def calib(self):
+        from geoflowslam_tpu_torch.imu.preintegration import ImuCalib
+        return ImuCalib.create(self.t_bc, self.noise_gyro, self.noise_acc,
+                               self.walk_gyro, self.walk_acc, self.freq)
 
 
 @dataclasses.dataclass(frozen=True)

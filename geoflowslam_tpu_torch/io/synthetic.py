@@ -167,12 +167,14 @@ def smooth_trajectory(t: torch.Tensor, scale: float = 1.0):
 
 
 class SyntheticSequence:
-    """Frames of a camera flying `smooth_trajectory` through the world."""
+    """Frames and IMU samples of a camera flying `smooth_trajectory` through
+    the world (camera = IMU body, gravity along world -z)."""
 
     def __init__(self, world: SyntheticWorld, fps: float = 30.0,
-                 scale: float = 1.0):
+                 imu_rate: float = 200.0, scale: float = 1.0):
         self.world = world
         self.fps = fps
+        self.imu_rate = imu_rate
         self.scale = scale
 
     def pose_cw(self, t: float):
@@ -187,6 +189,28 @@ class SyntheticSequence:
         rot_cw, t_cw = self.pose_cw(t)
         gray, depth = self.world.render(rot_cw, t_cw)
         return gray, depth, (rot_cw, t_cw)
+
+    def imu_between(self, t0: float, t1: float, max_samples: int):
+        """Padded IMU samples in (t0, t1]: (acc [S, 3], gyro [S, 3], dt [S])
+        in the body frame, float32 on the world's device."""
+        return _imu_between(lambda ts: smooth_trajectory(ts, self.scale),
+                            self.world.device, self.imu_rate, t0, t1,
+                            max_samples)
+
+
+def _imu_between(trajectory, dev, rate: float, t0: float, t1: float,
+                 max_samples: int):
+    """Samples of `trajectory` at `rate` Hz, midpoints of (t0, t1]'s
+    intervals, padded to max_samples rows with dt = 0."""
+    dt = 1.0 / rate
+    n = max(int(round((t1 - t0) * rate)), 0)
+    idx = torch.arange(max_samples, device=dev)
+    ts = t0 + (idx.float() + 0.5) * dt
+    rot_wb, _, _, a_w, w_body = trajectory(ts)
+    acc_b = torch.einsum("sij,sj->si", rot_wb.transpose(-1, -2),
+                         a_w - torch.from_numpy(GRAVITY).to(dev))
+    dts = torch.where(idx < n, dt, 0.0)
+    return acc_b.float(), w_body.float(), dts.float()
 
 
 def hard_trajectory(t: torch.Tensor, period: float = 40.0):
@@ -265,13 +289,6 @@ class HardSyntheticSequence:
     def imu_between(self, t0: float, t1: float, max_samples: int):
         """Padded IMU samples in (t0, t1]: (acc [S, 3], gyro [S, 3], dt [S])
         in the body frame, float32 on the world's device."""
-        dev = self.world.device
-        dt = 1.0 / self.imu_rate
-        n = max(int(round((t1 - t0) * self.imu_rate)), 0)
-        idx = torch.arange(max_samples, device=dev)
-        ts = t0 + (idx.float() + 0.5) * dt
-        rot_wb, _, _, a_w, w_body = hard_trajectory(ts, self.period)
-        acc_b = torch.einsum("sij,sj->si", rot_wb.transpose(-1, -2),
-                             a_w - torch.from_numpy(GRAVITY).to(dev))
-        dts = torch.where(idx < n, dt, 0.0)
-        return (acc_b.float(), w_body.float(), dts.float())
+        return _imu_between(lambda ts: hard_trajectory(ts, self.period),
+                            self.world.device, self.imu_rate, t0, t1,
+                            max_samples)

@@ -57,6 +57,19 @@ def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return _eye_like(k) - b[..., None, None] * k + c[..., None, None] * (k @ k)
 
 
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS * _EPS))
+    small = theta2 < _EPS
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / theta2 - (1.0 + torch.cos(theta))
+        / (2.0 * theta * torch.sin(theta)))
+    k = hat(phi)
+    return _eye_like(k) + 0.5 * k + cot_term[..., None, None] * (k @ k)
+
+
 def quat_from_mat(rot: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> unit quaternion (w, x, y, z), branchless: the
     numerically best of the four constructions per element, w >= 0."""

@@ -8,6 +8,9 @@ best covisible KFs (the gated Hamming search, the CUDA kernel on the card)
 -> descriptor/normal refresh -> map-point culling -> KF culling -> the
 local-window recompute for the tracker.
 
+With an IMU, VI-BA over the temporal KF window (`vi_ba_step`) takes the
+local BA's place.
+
 After a loop or a merge: `fuse_pair` welds the two loop ends, and the global
 BA runs either at once (`global_ba_step`) or as `AsyncGBA`, one GN iteration
 per tracked frame with the corrections propagated on write-back
@@ -16,6 +19,7 @@ per tracked frame with the corrections propagated on write-back
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +28,7 @@ from geoflowslam_tpu_torch.ops import matching
 from geoflowslam_tpu_torch.ops.indexing import (scatter_set, scatter_set_2d,
                                                 topk_stable)
 from geoflowslam_tpu_torch.pipeline import tracking as T
+from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.solvers import local_ba
 from geoflowslam_tpu_torch.state import map_state as M
 
@@ -73,13 +78,21 @@ def select_window(ms: M.MapState, center_kf: int, cfg: MappingConfig):
     return kf_idx, in_win, fixed
 
 
+def _clamped(ms: M.MapState, kf_idx):
+    """Window slots for reads: a padding slot (k_max) reads the last row,
+    as an out-of-range XLA gather does; writes to it are dropped."""
+    return torch.clamp(kf_idx, max=ms.k_max - 1)
+
+
 def extract_ba_problem(ms: M.MapState, kf_idx, in_win, fixed,
                        cfg: MappingConfig):
     """Dense BAProblem over the window KFs and the `ba_max_pts` landmarks
-    they observe most. Returns (problem, mp_idx, mp_in, ctx)."""
+    they observe most. Padding slots (k_max) must be out of the window.
+    Returns (problem, mp_idx, mp_in, ctx)."""
     dev = ms.kf_valid.device
     kw = kf_idx.shape[0]
     m = ms.m_max
+    kf_idx = _clamped(ms, kf_idx)
     opt_sel = in_win & ~fixed
     obs = ms.kf_obs_mp[kf_idx].long()                             # [KW, N]
     kp_valid = ms.kf_kp_valid[kf_idx]
@@ -124,11 +137,12 @@ def writeback_ba(ms: M.MapState, out: local_ba.BAProblem, obs_inl, kf_idx,
                  in_win, fixed, mp_idx, mp_in, ctx) -> M.MapState:
     kk, has, local_m, obs = ctx
     upd = in_win & ~fixed
+    kr = _clamped(ms, kf_idx)
     ms = ms._replace(
         kf_rot=scatter_set(ms.kf_rot, kf_idx, torch.where(
-            upd[:, None, None], out.kf_rot, ms.kf_rot[kf_idx])),
+            upd[:, None, None], out.kf_rot, ms.kf_rot[kr])),
         kf_t=scatter_set(ms.kf_t, kf_idx, torch.where(
-            upd[:, None], out.kf_t, ms.kf_t[kf_idx])),
+            upd[:, None], out.kf_t, ms.kf_t[kr])),
         mp_pos=scatter_set(ms.mp_pos, mp_idx, torch.where(
             mp_in[:, None], out.pts, ms.mp_pos[mp_idx])),
     )
@@ -430,16 +444,63 @@ def _batched_hamming(descs: torch.Tensor) -> torch.Tensor:
     return ((256.0 - pm @ pm.transpose(1, 2)) * 0.5).to(torch.int32)
 
 
+class VIWindow(NamedTuple):
+    """A temporal KF window for VI-BA: slots oldest first, end-padded with
+    k_max up to the window size (kw 8, 16 for VIBA1/VIBA2, 10 at the IMU
+    initialization); segment i joins slots i and i+1."""
+    slots: torch.Tensor        # [KW] long
+    slot_valid: torch.Tensor   # [KW] bool
+    segs: VIBA.ImuSegments
+    r_cb: torch.Tensor         # [3, 3]
+    t_cb: torch.Tensor         # [3]
+    walk_info: torch.Tensor    # [6, 6]
+
+
+def vi_ba_step(ms: M.MapState, win: VIWindow, cfg: MappingConfig):
+    """LocalInertialBA over a temporal window, its oldest KF fixed (the
+    glue around solvers/inertial_ba.vi_local_ba). Returns (ms, number of
+    BA observations)."""
+    kw = win.slots.shape[0]
+    fixed = torch.zeros((kw,), dtype=torch.bool, device=win.slots.device)
+    fixed[0] = True
+    prob_vis, mp_idx, mp_in, ctx = extract_ba_problem(
+        ms, win.slots, win.slot_valid, fixed, cfg)
+    kr = _clamped(ms, win.slots)
+    prob = VIBA.VIBAProblem(
+        vis=prob_vis, kf_vel=ms.kf_vel[kr], kf_bias=ms.kf_bias[kr],
+        segs=win.segs, r_cb=win.r_cb, t_cb=win.t_cb,
+        walk_info=win.walk_info)
+    out, obs_inl = VIBA.vi_local_ba(prob, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                    cfg.bf)
+    ms = writeback_ba(ms, out.vis, obs_inl, win.slots, win.slot_valid,
+                      fixed, mp_idx, mp_in, ctx)
+    upd = (win.slot_valid & ~fixed)[:, None]
+    ms = ms._replace(
+        kf_vel=scatter_set(ms.kf_vel, win.slots, torch.where(
+            upd, out.kf_vel, ms.kf_vel[kr])),
+        kf_bias=scatter_set(ms.kf_bias, win.slots, torch.where(
+            upd, out.kf_bias, ms.kf_bias[kr])))
+    return ms, prob_vis.obs_valid.sum()
+
+
 def mapping_step(ms: M.MapState, frame, rot, t, time_rel: float, obs_mp,
                  ref_kf: int, kf_slot: int, tcfg: TrackConfig,
-                 cfg: MappingConfig):
-    """The per-KF mapping pipeline (LocalMapping::Run body), visual only.
+                 cfg: MappingConfig, vi=None):
+    """The per-KF mapping pipeline (LocalMapping::Run body). With `vi`
+    (velocity [3], bias [6], VIWindow) the new KF takes the body state's
+    velocity and bias and VI-BA over the window replaces the local BA.
 
     Returns (ms, new_obs [N], local masks, kf_rot, kf_t, culled slot [],
     BA observation count [])."""
     ms, _ = T.create_keyframe(ms, frame, rot, t, time_rel, obs_mp, ref_kf,
                               kf_slot, tcfg)
-    ms, n_obs = local_ba_step(ms, kf_slot, cfg)
+    if vi is None:
+        ms, n_obs = local_ba_step(ms, kf_slot, cfg)
+    else:
+        vel, bias, win = vi
+        ms = ms._replace(kf_vel=M._set_row(ms.kf_vel, kf_slot, vel),
+                         kf_bias=M._set_row(ms.kf_bias, kf_slot, bias))
+        ms, n_obs = vi_ba_step(ms, win, cfg)
     # one post-BA incidence/covisibility shared by fusion, refresh and the
     # culls; neighbour selection may lag fusion's relabels by one step, as
     # in the reference, while every decision is masked by current validity

@@ -1,5 +1,5 @@
-"""RGB-D SLAM façade of the port (the synchronous counterpart of
-geoflowslam_tpu/pipeline/system.py's RGB-D path).
+"""RGB-D and RGB-D-inertial SLAM façade of the port (the synchronous
+counterpart of geoflowslam_tpu/pipeline/system.py's RGB-D paths).
 
 Per frame, in the caller's thread, on the system's device:
   [m12 feed: pack on the host, unpack on the device] -> motion-model pose
@@ -39,6 +39,19 @@ façade handles it:
   failing that it drops the motion model, and every RECENTLY_LOST frame,
   the first included, tries to relocalize (accepted at min_inliers_ok).
 
+With an IMU (`cfg.imu`, `track_rgbd_inertial`) the frame follows the
+reference's fused step with its imu_mode: "raw" preintegrates until the IMU
+is initialized; "kf" and "prior" predict the pose from the last body state
+(PredictStateIMU), track visually, then refine with the IMU factor against
+the last KF-anchored state, or jointly with the last frame's state under its
+marginal, and take the VI state when it keeps max(min_inliers_ok, half the
+visual inliers). A lost frame dead-reckons the prediction; KFs come at
+least every 0.5 s, and while lost (InsertKFsWhenLost). Until the IMU is
+initialized a KF takes the reference's staged KF step, which attempts the
+initialization; after it, the mapping step runs VI-BA over the temporal
+window (8 KFs, 16 for VIBA1 and VIBA2). The IMU path runs on the default
+(fused) path only: it needs a vocabulary and record_reproj_err off.
+
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
 closing). With `cfg.loop` as well, each KF runs place recognition after
@@ -59,9 +72,11 @@ import numpy as np
 import torch
 
 from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.imu import preintegration as pre
 from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
+from geoflowslam_tpu_torch.pipeline import inertial as IN
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import of_tracking as OF
 from geoflowslam_tpu_torch.pipeline import reloc as R
@@ -83,10 +98,13 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D, OF/ICP, relocalization
-    and loop-closing paths."""
-    off = {"imu": cfg.imu is None,
-           "use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
+    """Raise on options outside the ported RGB-D, RGB-D-inertial, OF/ICP,
+    relocalization and loop-closing paths."""
+    off = {"use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
+           # the inter-KF EdgeICP factors of VI-BA and the OF stage beside
+           # the IMU are not ported yet
+           "imu with use_icp": cfg.imu is None or not cfg.use_icp,
+           "imu with use_of": cfg.imu is None or not cfg.use_of,
            "stereo_fisheye": cfg.stereo_fisheye is None,
            "local_ba_every_kf=False": cfg.local_ba_every_kf,
            f"sensor={cfg.sensor!r}": cfg.sensor == "rgbd"}
@@ -109,6 +127,10 @@ class SlamSystem:
             raise RuntimeError("SlamSystem: CUDA device requested but "
                                "torch.cuda.is_available() is False")
         check_config(cfg)
+        if cfg.imu is not None and (vocab is None or cfg.record_reproj_err):
+            raise NotImplementedError(
+                "not ported yet: imu on the staged path (the IMU path needs "
+                "a vocabulary and record_reproj_err off)")
         self.cfg = cfg
         self.device = dev
         self.tcfg = cfg.track_cfg()
@@ -180,6 +202,14 @@ class SlamSystem:
         # slot -> (cloud, valid) of the last 40 KFs with use_icp, for the
         # loop closer's use_icp_loop refinement
         self._kf_clouds: dict = {}
+        # the IMU: preintegration, body state and initialization, and the
+        # marginal information of the last frame's VI state (the next
+        # frame's prior; None after a KF or a rejected VI frame)
+        self.imu = (IN.InertialTracker(cfg.imu, dev) if cfg.imu is not None
+                    else None)
+        self._vi_prior: Optional[torch.Tensor] = None
+        self.imu_modes: dict = {}     # frames per imu_mode
+        self.n_vi_accepted = 0        # frames whose VI state was accepted
 
     # -- public API ----------------------------------------------------------
 
@@ -187,9 +217,25 @@ class SlamSystem:
         """Track one frame (gray [H, W] 0..255, depth [H, W] in metres x
         depth_map_factor, numpy or tensors; with feed_codec "m12" also an
         already-packed 1-D uint8 buffer, depth then unused). Returns Twc 4x4
-        (float64)."""
+        (float64). With an IMU configured the frame takes the inertial
+        path without IMU samples."""
+        return self._track(gray, depth, timestamp, None)
+
+    def track_rgbd_inertial(self, gray, depth, acc, gyro, dts,
+                            timestamp: float) -> np.ndarray:
+        """Track one frame with the IMU samples since the previous frame:
+        acc, gyro [S, 3] in the body frame, dts [S] (0 = padding), numpy or
+        tensors (S <= ImuConfig.max_samples_per_frame). Returns Twc 4x4."""
+        if self.imu is None:
+            raise ValueError("track_rgbd_inertial needs SystemConfig.imu")
+        return self._track(gray, depth, timestamp, (acc, gyro, dts))
+
+    def _track(self, gray, depth, timestamp: float, imu_in):
         gray, depth = self._encode_feed(gray, depth)
         self._t_rel(timestamp)
+        if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
+                and self.imu is not None and self._imu_guard(timestamp)):
+            return self.current_pose_wc()
         if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
                 and timestamp < self.last_time):
             warnings.warn("frame timestamp older than the previous frame: "
@@ -200,7 +246,11 @@ class SlamSystem:
             frame = build_frame(gray, depth, self.cfg.frame, self.cfg.fx,
                                 self.cfg.fy, self.cfg.cx, self.cfg.cy)
             if self.state == TrackingState.NOT_INITIALIZED:
+                if imu_in is not None:
+                    self.imu.preintegrate_frame(*imu_in, timestamp)
                 self._initialize(frame, timestamp)
+            elif self.imu is not None:
+                twc = self._track_frame_inertial(frame, imu_in, timestamp)
             else:
                 frame, twc = self._track_frame(frame, timestamp)
         if self._gba is not None and self._gba.active and self._gba.step():
@@ -307,6 +357,28 @@ class SlamSystem:
         self.has_vel = False
         self.last_obs_mp = None
         self.local_masks = None
+        self._vi_prior = None
+
+    def _imu_guard(self, timestamp: float) -> bool:
+        """The reference's frame-time guards with an IMU (its fused path):
+        an older timestamp resets the active map, a gap over max_frame_gap
+        starts a new map (a reset before the IMU is initialized); the frame
+        itself is dropped. Returns True when it dropped the frame."""
+        if timestamp < self.last_time:
+            warnings.warn("frame timestamp older than the previous frame: "
+                          "resetting the active map")
+            self.reset_active_map()
+            return True
+        if timestamp - self.last_time > self.cfg.max_frame_gap:
+            warnings.warn(f"timestamp jump of "
+                          f"{timestamp - self.last_time:.2f}s with IMU: map "
+                          "recovery")
+            if self.imu.initialized:
+                self._reset_or_new_map()
+            else:
+                self.reset_active_map()
+            return True
+        return False
 
     def _t_rel(self, timestamp: float) -> float:
         """Seconds since the session's first frame (f64 on the host; small
@@ -352,6 +424,10 @@ class SlamSystem:
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
         self._db_insert_kf(slot)
+        if self.imu is not None:
+            self.imu.pending = None     # the first KF has no segment
+            self.imu.on_keyframe(slot)
+            self.imu.body = self.imu.body_from_cam(self.cur_rot, self.cur_t)
 
     def _db_insert_kf(self, slot: int):
         """Enter a KF into the BoW database; for loop-closing systems the
@@ -496,6 +572,123 @@ class SlamSystem:
             self._reset_or_new_map()
         return frame, None
 
+    def _track_frame_inertial(self, frame: FrameData, imu_in,
+                              timestamp: float):
+        """Track one frame after initialization on the reference's fused
+        path with an IMU (geoflowslam_tpu/pipeline/fused.py frame_step and
+        its host decisions). `imu_mode`: "off" without samples, "raw" until
+        the IMU is initialized (preintegrate only), then "kf" (VI against
+        the last KF-anchored state) or "prior" (joint with the last frame's
+        state under its marginal). Returns the Twc recorded mid-step or
+        None."""
+        cfg, imu = self.cfg, self.imu
+        min_ok = cfg.min_inliers_ok
+        if imu_in is None:
+            mode = "off"
+        elif not imu.initialized or imu.body is None:
+            mode = "raw"
+        else:
+            mode = "kf" if self._vi_prior is None else "prior"
+        self.imu_modes[mode] = self.imu_modes.get(mode, 0) + 1
+        last_rot, last_t = self.cur_rot, self.cur_t
+        p_frame = pred_body = None
+        if mode != "off":
+            p_frame = pre.to_device(
+                imu.preintegrate_frame(*imu_in, timestamp), self.device)
+        if mode in ("kf", "prior"):
+            pred_body = imu.predict(p_frame)
+            pr, pt = imu.cam_from_body(pred_body)
+        elif self.has_vel:
+            pr, pt = lie.se3_compose(self.vel[0], self.vel[1], last_rot,
+                                     last_t)
+        else:
+            pr, pt = last_rot, last_t
+        res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
+                                        pt, self.tcfg, self.last_levels)
+        if self.local_masks is None:
+            self.local_masks = M.local_window(
+                self.ms, self.ref_kf, self.tcfg.local_window,
+                self.tcfg.lm_max_candidates)
+        ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
+                                      res.t, self.tcfg, self.local_masks)
+        rot_f, t_f, obs_f = res2.rot, res2.t, res2.obs_mp
+        scal = [res.n_inliers, res2.n_inliers]
+        if mode in ("kf", "prior"):
+            rot_f, t_f, obs_f, n_vi, accept, body, marg = IN.refine_frame(
+                imu, mode, ms2, frame, res2, pred_body, p_frame,
+                self._vi_prior, self.tcfg, min_ok)
+            bias = torch.cat([body.bg, body.ba])
+            scal += [n_vi, accept, bias]
+        # the frame's one host read: inlier counts, VI verdict, the bias
+        pkt = torch.cat([torch.as_tensor(x, device=self.device)
+                         .reshape(-1).float() for x in scal]).cpu().numpy()
+        n1, n2 = int(pkt[0]), int(pkt[1])
+        vi_ok = mode in ("kf", "prior") and bool(pkt[3])
+        n_final = int(pkt[2]) if vi_ok else n2
+        self.inlier_log.append((round(timestamp, 4), n1, n2))
+        if len(self.inlier_log) > 4096:
+            del self.inlier_log[:2048]
+        if vi_ok:
+            self.n_vi_accepted += 1
+
+        if n_final >= min_ok:
+            self.state = TrackingState.OK
+            self.lost_since = None
+            self._carried_streak = 0
+            self.ms = ms2
+            self._set_pose(rot_f, t_f, last_rot, last_t)
+            self.last_obs_mp = obs_f
+            if mode in ("kf", "prior"):
+                imu.body = body
+                imu.set_bias(pkt[4:10], bias)
+                self._vi_prior = marg if vi_ok else None
+            self.frames_since_kf += 1
+            self._kf_watchdog(timestamp)
+            if not self._need_new_keyframe(n_final, timestamp):
+                return None
+            # recorded against the reference KF before the KF's mapping
+            twc = self._record_pose(timestamp)
+            self._insert_keyframe(frame, timestamp,
+                                  T.TrackResult(rot_f, t_f, obs_f, n2), n2)
+            return twc
+        if self.state == TrackingState.RECENTLY_LOST:
+            rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
+                                  self.ref_kf, self.last_levels, self.tcfg,
+                                  min_ok, self._reloc_attempt)
+            if rec is not None:
+                if mode in ("kf", "prior"):
+                    # the body state at the recovered pose keeps the
+                    # dead-reckoned velocity
+                    imu.body = imu.body_from_cam(rec.rot, rec.t,
+                                                 v=pred_body.v)
+                self._vi_prior = None
+                return self._adopt_recovery(rec, timestamp)
+        # a lost frame: with the IMU it dead-reckons the prediction, without
+        # it holds the last pose; the motion model and the bindings stay
+        self.n_lost += 1
+        self._lost_stamps.add(round(timestamp, 6))
+        self.has_vel = True
+        if mode in ("kf", "prior"):
+            self.cur_rot, self.cur_t = pr, pt
+            imu.body = pred_body
+            self._vi_prior = None
+        if self.state == TrackingState.OK:
+            self.state = TrackingState.RECENTLY_LOST
+            self.lost_since = timestamp
+        twc = self._record_pose(timestamp, with_ref=False)
+        if (cfg.insert_kfs_when_lost and imu.initialized
+                and timestamp - self._last_kf_time >= 0.5):
+            # InsertKFsWhenLost: KFs from the dead-reckoned pose bridge the
+            # gap with depth-created points; no visual bindings carry over
+            no_obs = torch.full_like(self.last_obs_mp, M.NO_MP)
+            self._insert_keyframe(frame, timestamp, T.TrackResult(
+                self.cur_rot, self.cur_t, no_obs, 0), 0)
+        if (self.lost_since is not None
+                and timestamp - self.lost_since > cfg.time_recently_lost):
+            self.state = TrackingState.LOST
+            self._reset_or_new_map()
+        return twc
+
     def _fused_mode(self) -> bool:
         """The reference's default recovery (see the module docstring)."""
         return self.vocab is not None and not self.cfg.record_reproj_err
@@ -593,8 +786,13 @@ class SlamSystem:
         return (torch.where(ok, r_icp, pred_rot),
                 torch.where(ok, t_icp, pred_t), ok)
 
-    def _need_new_keyframe(self, n_inliers: int) -> bool:
-        """NeedNewKeyFrame essentials (no IMU cadence)."""
+    def _need_new_keyframe(self, n_inliers: int,
+                           timestamp: Optional[float] = None) -> bool:
+        """NeedNewKeyFrame essentials; with an IMU a KF at least every
+        0.5 s keeps the preintegration segments short."""
+        if (self.imu is not None and self.frames_since_kf >= 1
+                and timestamp - self._last_kf_time >= 0.5):
+            return True
         ref = max(self.ref_kf_inliers, 1)
         if n_inliers < 0.35 * ref and self.frames_since_kf >= 1:
             return True   # tracking cliff: insert regardless of cadence
@@ -606,12 +804,16 @@ class SlamSystem:
 
     def _insert_keyframe(self, frame: FrameData, timestamp: float,
                          res: T.TrackResult, n_inliers: int):
+        if self.imu is not None and not self.imu.initialized:
+            return self._insert_keyframe_before_imu_init(frame, timestamp,
+                                                         res, n_inliers)
         slot = self._free_kf_slot()
+        vi = self._vi_window_for_kf(slot, timestamp) if self.imu else None
         with self.timers.time("New_KF"):
             # ends in the read of `culled`: includes the step's device work
             ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
                 self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
-                res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg)
+                res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg, vi=vi)
             culled_i = int(culled)
         if culled_i >= 0:
             self._on_kf_culled(ms, culled_i)
@@ -635,6 +837,10 @@ class SlamSystem:
         self._last_kf_time = timestamp
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
+        if self.imu is not None:
+            # the next frame tracks against the map-anchored KF state
+            self._vi_prior = None
+            self._rederive_body()
         if self.cfg.use_icp:
             # insertion order, a reused slot re-entering as the newest
             self._kf_clouds.pop(slot, None)
@@ -645,7 +851,8 @@ class SlamSystem:
             self._db_insert_kf(slot)
             return
         self.ms, found = self.loop_closer.on_keyframe(
-            self.ms, slot, kf_clouds=self._kf_clouds or None)
+            self.ms, slot, kf_clouds=self._kf_clouds or None,
+            inertial=self.imu is not None and self.imu.initialized)
         if not found:
             return
         # the correction moved the map: carry the KF's correction onto the
@@ -669,6 +876,153 @@ class SlamSystem:
         self.cur_rot, self.cur_t = lie.se3_compose(self.cur_rot, self.cur_t,
                                                    dr, dt)
         self.has_vel = False
+        self._rederive_body()
+
+    def _rederive_body(self):
+        """The body state at the current pose, its velocity kept (after a
+        map correction moved the pose)."""
+        if self.imu is not None and self.imu.body is not None:
+            self.imu.body = self.imu.body_from_cam(self.cur_rot, self.cur_t,
+                                                   v=self.imu.body.v)
+
+    def _vi_window(self, slots, kw: int) -> LM.VIWindow:
+        """A VI-BA window over `slots` (oldest first), end-padded to kw with
+        the out-of-range slot k_max."""
+        imu = self.imu
+        slots_p = list(slots) + [self.cfg.k_max] * (kw - len(slots))
+        return LM.VIWindow(
+            slots=torch.tensor(slots_p, device=self.device),
+            slot_valid=torch.arange(kw, device=self.device) < len(slots),
+            segs=imu.build_segments(slots_p), r_cb=imu.r_cb, t_cb=imu.t_cb,
+            walk_info=imu.walk_info_dev)
+
+    def _viba_width(self, timestamp: float) -> int:
+        """The VI-BA window of a KF: 8, or 16 for the staged refinements
+        VIBA1 and VIBA2 (the first KF past 5 s and 10 s after the IMU
+        initialization)."""
+        imu, t = self.imu, self._t_rel(timestamp)
+        if imu.init_time is not None and not imu.viba1_done \
+                and t - imu.init_time > 5.0:
+            imu.viba1_done = True
+            return 16
+        if imu.init_time is not None and not imu.viba2_done \
+                and t - imu.init_time > 10.0:
+            imu.viba2_done = True
+            return 16
+        return 8
+
+    def _vi_window_for_kf(self, slot: int, timestamp: float):
+        """Bind the pending IMU segment to the new KF and return (velocity,
+        bias, VI-BA window) for its mapping step, or None (local BA) while
+        the window holds fewer than 3 KFs."""
+        imu = self.imu
+        imu.on_keyframe(slot, upto_ts=timestamp)
+        kw = self._viba_width(timestamp)
+        slots = imu.contiguous_window(kw)
+        if len(slots) < 3:
+            return None
+        vel = (imu.body.v if imu.body is not None
+               else torch.zeros(3, device=self.device))
+        return vel, imu.bias_on_device(), self._vi_window(slots, kw)
+
+    def _insert_keyframe_before_imu_init(self, frame: FrameData,
+                                         timestamp: float,
+                                         res: T.TrackResult,
+                                         n_inliers: int):
+        """The reference's staged KF step, which it runs until the IMU is
+        initialized: KF insertion, the IMU initialization attempt (on
+        success VI-BA over the init window, kw 10), local BA (VI-BA once
+        initialized), duplicate fusion, point statistics, point and KF
+        culling, loop detection; tracking goes on from the KF's pose and its
+        live bindings, without the motion model."""
+        imu = self.imu
+        slot = self._free_kf_slot()
+        with self.timers.time("New_KF"):
+            self.ms, _ = T.create_keyframe(
+                self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
+                res.obs_mp, self.ref_kf, slot, self.tcfg)
+        self.ref_kf = slot
+        self.ref_kf_inliers = n_inliers
+        self.frames_since_kf = 0
+        self._last_kf_time = timestamp
+        self._gen_counter += 1
+        self._kf_gen[slot] = self._gen_counter
+        self._vi_prior = None
+        imu.on_keyframe(slot, upto_ts=timestamp)
+        self.ms, did = imu.try_initialize(self.ms)
+        if did:
+            imu.init_time = self._t_rel(timestamp)
+            self._consume_imu_transform()
+            slots0 = imu.contiguous_window(10)
+            if len(slots0) >= 3:
+                self.ms, _ = LM.vi_ba_step(
+                    self.ms, self._vi_window(slots0, 10), self.mcfg)
+            self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
+            imu.body = imu.body_from_cam(self.cur_rot, self.cur_t,
+                                         v=self.ms.kf_vel[slot])
+            self.has_vel = False
+        with self.timers.time("LBA"):
+            slots = []
+            if imu.initialized and len(imu.kf_order) >= 4:
+                kw = self._viba_width(timestamp)
+                slots = imu.contiguous_window(kw)
+            if len(slots) >= 3:
+                self.ms, _ = LM.vi_ba_step(self.ms, self._vi_window(slots, kw),
+                                           self.mcfg)
+            else:
+                self.ms, _ = LM.local_ba_step(self.ms, slot, self.mcfg)
+        # BA moved the map: re-anchor on the optimized KF
+        self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
+        self.has_vel = False
+        if imu.initialized:
+            self._rederive_body()
+        self.ms = LM.fuse_duplicates(self.ms, slot, self.mcfg)
+        self.ms = LM.refresh_point_stats(self.ms, slot)
+        self.ms = M.cull_map_points(self.ms)
+        self.ms, culled = LM.keyframe_culling(self.ms, slot)
+        culled_i = int(culled)
+        if culled_i >= 0:
+            self._on_kf_culled(self.ms, culled_i)
+        if self.loop_closer is not None:
+            self.ms, found = self.loop_closer.on_keyframe(
+                self.ms, slot, inertial=imu.initialized)
+            if found:
+                self.cur_rot = self.ms.kf_rot[slot]
+                self.cur_t = self.ms.kf_t[slot]
+                self.has_vel = False
+                self._rederive_body()
+                if self._gba is not None and self.cfg.loop.async_global_ba:
+                    self._gba.abort()
+                    self._gba.start(self.ms)
+        obs = self.ms.kf_obs_mp[slot]
+        self.last_obs_mp = torch.where(
+            (obs >= 0) & self.ms.mp_valid[torch.clamp_min(obs, 0).long()],
+            obs, M.NO_MP)
+        self.local_masks = None
+
+    def _consume_imu_transform(self):
+        """Fold the map transform of the last IMU initialization into the
+        recorded trajectory (world X' = s R_gw X): absolute snapshots,
+        relative entries and culled-parent links alike."""
+        tr = self.imu.last_transform
+        if tr is None:
+            return
+        self.imu.last_transform = None
+        rw, s = np.asarray(tr[0], np.float64), float(tr[1])
+        for i, e in enumerate(self._traj):
+            m = np.asarray(e[1], np.float64).copy()
+            m[:3, :3] = rw @ m[:3, :3]
+            m[:3, 3] = s * (rw @ m[:3, 3])
+            if len(e) == 2:
+                self._traj[i] = (e[0], m)
+            else:
+                trel = e[4].copy()
+                trel[:, 3] = s * trel[:, 3]
+                self._traj[i] = (e[0], m, e[2], e[3], trel)
+        for k, (prev, pgen, tcp) in list(self._culled_rel.items()):
+            tcp = tcp.copy()
+            tcp[:, 3] = s * tcp[:, 3]
+            self._culled_rel[k] = (prev, pgen, tcp)
 
     def _finish_gba(self):
         """Write the finished global BA back and carry the reference KF's
@@ -698,6 +1052,18 @@ class SlamSystem:
             rel = torch.cat([r_cp, t_cp[:, None]], 1).cpu().numpy()
             self._culled_rel[(culled, gen)] = (prev, self._kf_gen.get(prev),
                                                rel.astype(np.float64))
+        imu = self.imu
+        if imu is not None and culled in imu.kf_preints:
+            # the culled KF's segment is merged into its successor's
+            order = imu.kf_order
+            if culled in order:
+                pos = order.index(culled)
+                nxt = order[pos + 1] if pos + 1 < len(order) else None
+                if nxt in imu.kf_preints:
+                    imu.kf_preints[nxt] = imu.merge_segments(
+                        imu.kf_preints[culled], imu.kf_preints[nxt])
+                order.remove(culled)
+                imu.kf_preints.pop(culled, None)
 
     def _reset_or_new_map(self):
         """Atlas recovery: start a new map when the active one holds enough

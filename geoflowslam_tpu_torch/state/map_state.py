@@ -322,3 +322,23 @@ def merge_maps(ms: MapState, from_map, into_map, s, rot, t) -> MapState:
         mp_map_id=torch.where(mp_sel, into, ms.mp_map_id),
         active_map=into.clone(),
     )
+
+
+def apply_scaled_rotation(ms: MapState, rot_gw, scale,
+                          translate_vel: bool = True) -> MapState:
+    """Map::ApplyScaledRotation after the IMU initialization: rotate the
+    active map so that gravity points along -z and rescale it (world
+    X' = s R_gw X)."""
+    kf_sel = ms.kf_valid & (ms.kf_map_id == ms.active_map)
+    mp_sel = ms.mp_valid & (ms.mp_map_id == ms.active_map)
+    # Tcw' = Tcw [R_gw^T / s]: R_cw' = R_cw R_gw^T, t_cw' = s t_cw
+    new_rot = torch.einsum("kij,lj->kil", ms.kf_rot, rot_gw)
+    new_t = scale * ms.kf_t
+    new_pos = scale * ms.mp_pos @ rot_gw.T
+    new_vel = scale * ms.kf_vel @ rot_gw.T if translate_vel else ms.kf_vel
+    return ms._replace(
+        kf_rot=torch.where(kf_sel[:, None, None], new_rot, ms.kf_rot),
+        kf_t=torch.where(kf_sel[:, None], new_t, ms.kf_t),
+        kf_vel=torch.where(kf_sel[:, None], new_vel, ms.kf_vel),
+        mp_pos=torch.where(mp_sel[:, None], new_pos, ms.mp_pos),
+    )

@@ -1,8 +1,10 @@
 """Hard-mode run of the port: the long synthetic sequence of
 geoflowslam_tpu_torch.io.synthetic.HardSyntheticSequence (loop revisits
 every 40 s, fast-rotation bursts, texture-poor windows) through
-SlamSystem.track_rgbd on the packed m12 feed, with the configuration of the
-JAX package's hard-mode script (examples/run_hardmode.py).
+SlamSystem.track_rgbd (--mode rgbd) or track_rgbd_inertial with the
+sequence's 200 Hz IMU samples (--mode rgbd_inertial, ImuConfig()) on the
+packed m12 feed, with the configuration of the JAX package's hard-mode
+script (examples/run_hardmode.py).
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -11,24 +13,31 @@ Run from the root of a checkout, on a machine with a CUDA card:
         [--of] [--icp] [--reference results_hard/rgbd]
 
 The sequence is rendered on the device in batches, packed there
-(io/feed_codec.pack_m12_torch) and kept in host memory; only track_rgbd is
-timed, with a device sync after each frame. Writes to --out:
+(io/feed_codec.pack_m12_torch) and kept in host memory with the IMU
+samples of every frame gap (HardSyntheticSequence.imu_between); only the
+track call is timed, with a device sync after each frame. Writes to --out:
   hardmode.json       ATE/RPE against the analytic ground truth, the map,
                       per-KF mapping cost (the New_KF stage timer, early and
                       late halves), KF-frame wall time, loops, merges,
                       kf_stall_warnings, n_lost, n_recovered (frames
                       the recovery step took), n_reloc (of those, the
-                      relocalized ones), ms a frame;
+                      relocalized ones), ms a frame; with the IMU also
+                      imu_modes (frames per imu_mode), vi_accepted,
+                      imu_init_time_s (since the first frame),
+                      viba1_done and viba2_done;
   frames_diag.jsonl   [frame, seconds, state, n_lost] per frame;
-  inliers_diag.jsonl  [t, motion-model inliers, local-map inliers] per frame.
+  inliers_diag.jsonl  [t, motion-model inliers, local-map inliers] per frame;
+  CameraTrajectory.txt  the exported trajectory, TUM format (t tx ty tz qx
+                      qy qz qw), as the JAX script's shutdown writes it.
 Both diagnostics are rewritten every 100 frames, so a run cut short leaves
 how far it got. --reference DIR prints the accuracy and map numbers of a
 hardmode.json of the JAX package beside this run's, with the frames where
 either side is not OK, the first frame where the states differ, the first
 frame where the local-map inlier counts part by more than 30%, each
-side's frames under min_inliers_ok local-map inliers, and the port's
+side's frames under min_inliers_ok local-map inliers, the port's
 frames that were OK all the same (taken by the recovery step, or
-ICP-carried). --report-only
+ICP-carried), and the two exported trajectories' distance per frame.
+--report-only
 compares an existing --out with --reference without running.
 """
 from __future__ import annotations
@@ -46,8 +55,8 @@ if __name__ == "__main__":   # run as a script: the checkout's root
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from geoflowslam_tpu_torch.config import (FrameConfig, LoopConfig,  # noqa
-                                          OrbConfig, SystemConfig)
+from geoflowslam_tpu_torch.config import (FrameConfig, ImuConfig,  # noqa
+                                          LoopConfig, OrbConfig, SystemConfig)
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe  # noqa: E402
 from geoflowslam_tpu_torch.io import feed_codec as FC  # noqa: E402
 from geoflowslam_tpu_torch.io.synthetic import (  # noqa: E402
@@ -62,8 +71,9 @@ MIN_OK = SystemConfig().min_inliers_ok
 
 
 def make_config(width: int, height: int, features: int, loop: bool,
-                of: bool, icp: bool) -> SystemConfig:
-    """The JAX hard-mode script's RGB-D configuration."""
+                of: bool, icp: bool, imu: bool = False) -> SystemConfig:
+    """The JAX hard-mode script's RGB-D (with `imu`: RGB-D-inertial)
+    configuration."""
     fx = width * 0.625
     orb = OrbConfig(n_features=features, n_levels=8 if width >= 640 else 4,
                     height=height, width=width)
@@ -73,6 +83,7 @@ def make_config(width: int, height: int, features: int, loop: bool,
     return SystemConfig(fx=fx, fy=fx, cx=width / 2, cy=height / 2,
                         bf=fx * 0.1, frame=fc,
                         loop=LoopConfig() if loop else None,
+                        imu=ImuConfig() if imu else None,
                         use_of=of, use_icp=icp, k_max=128, m_max=32768)
 
 
@@ -118,6 +129,36 @@ def _halves(v):
     return float(np.mean(v[1:half])), float(np.mean(v[half:]))
 
 
+def _quat_xyzw(r: np.ndarray) -> np.ndarray:
+    """Unit quaternion (x, y, z, w), w >= 0, of a rotation matrix."""
+    m = np.asarray(r, np.float64)
+    k = np.array([
+        [m[0, 0] - m[1, 1] - m[2, 2], 0.0, 0.0, 0.0],
+        [m[0, 1] + m[1, 0], m[1, 1] - m[0, 0] - m[2, 2], 0.0, 0.0],
+        [m[0, 2] + m[2, 0], m[1, 2] + m[2, 1], m[2, 2] - m[0, 0] - m[1, 1],
+         0.0],
+        [m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1],
+         m[0, 0] + m[1, 1] + m[2, 2]]]) / 3.0
+    w, v = np.linalg.eigh(k)
+    q = v[:, np.argmax(w)]
+    return q if q[3] >= 0 else -q
+
+
+def write_tum(path: str, traj) -> None:
+    """[(t, Twc 4x4)] as TUM lines: t tx ty tz qx qy qz qw."""
+    with open(path, "w") as f:
+        for t, m in traj:
+            q = _quat_xyzw(m[:3, :3])
+            f.write(f"{t:.6f} " + " ".join(f"{x:.7f}" for x in (
+                *m[:3, 3], *q)) + "\n")
+
+
+def read_tum(path: str) -> dict:
+    """TUM lines -> {round(t, 4): position [3]}."""
+    rows = np.loadtxt(path, ndmin=2)
+    return {round(float(r[0]), 4): r[1:4] for r in rows}
+
+
 def _write_diag(out_dir: str, diag: list, inliers: list) -> None:
     for name, rows in (("frames_diag.jsonl", diag),
                        ("inliers_diag.jsonl", inliers)):
@@ -150,7 +191,9 @@ def run(args) -> dict:
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)
     w, h = args.width, args.height
-    cfg = make_config(w, h, args.features, args.loop, args.of, args.icp)
+    inertial = args.mode == "rgbd_inertial"
+    cfg = make_config(w, h, args.features, args.loop, args.of, args.icp,
+                      imu=inertial)
     cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=w,
                  height=h)
     seq = HardSyntheticSequence(SyntheticWorld(cam, device=dev),
@@ -161,6 +204,9 @@ def run(args) -> dict:
     bufs = prerender(seq, rot_cw, t_cw, ts_all)
     print(f"pre-rendered {args.frames} m12 frames {w}x{h} in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    imu = [None] + [tuple(x.cpu().numpy() for x in seq.imu_between(
+        ts_all[i - 1], ts_all[i], cfg.imu.max_samples_per_frame))
+        for i in range(1, args.frames)] if inertial else None
 
     slam = SlamSystem(cfg, dev, vocab=default_vocabulary(dev))
     os.makedirs(args.out, exist_ok=True)
@@ -170,7 +216,10 @@ def run(args) -> dict:
     for i in range(args.frames):
         t_abs = args.t0 + ts_all[i]
         tk0 = time.perf_counter()
-        slam.track_rgbd(bufs[i], None, t_abs)
+        if inertial and i > 0:
+            slam.track_rgbd_inertial(bufs[i], None, *imu[i], t_abs)
+        else:
+            slam.track_rgbd(bufs[i], None, t_abs)
         if cuda:
             torch.cuda.synchronize()
         tk = time.perf_counter() - tk0
@@ -200,6 +249,7 @@ def run(args) -> dict:
 
     st = slam.map_stats()
     traj = slam.trajectory
+    write_tum(os.path.join(args.out, "CameraTrajectory.txt"), traj)
     m = ate_rmse(traj, gt)
     r = rpe(traj, gt)
     early, late = _halves(slam.timers.samples.get("New_KF", []))
@@ -223,6 +273,11 @@ def run(args) -> dict:
            "device": (torch.cuda.get_device_name(dev) if cuda
                       else "cpu"),
            "card": _card() if cuda else "cpu"}
+    if inertial:
+        out.update(imu_modes=slam.imu_modes, vi_accepted=slam.n_vi_accepted,
+                   imu_init_time_s=slam.imu.init_time,
+                   viba1_done=slam.imu.viba1_done,
+                   viba2_done=slam.imu.viba2_done)
     with open(os.path.join(args.out, "hardmode.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(f"{args.frames} frames in {wall:.1f} s; map {st}; ATE "
@@ -291,9 +346,23 @@ def compare(port_dir: str, ref_dir: str, t0: float, fps: float) -> dict:
               f"{failed[tag]}")
     print(f"  port frames OK under {MIN_OK} local-map inliers (recovery "
           f"step or ICP-carried): {ok_failed}")
+    dist = None
+    paths = [os.path.join(d, "CameraTrajectory.txt")
+             for d in (port_dir, ref_dir)]
+    if all(os.path.exists(x) for x in paths):
+        tp, tr = read_tum(paths[0]), read_tum(paths[1])
+        both = sorted(set(tp) & set(tr))
+        d = np.array([np.linalg.norm(tp[t] - tr[t]) for t in both])
+        part = next((frame(t) for t, x in zip(both, d) if x > 0.02), None)
+        dist = dict(n=len(both), max_m=float(d.max()) if len(d) else None,
+                    median_m=float(np.median(d)) if len(d) else None,
+                    first_frame_over_2cm=part)
+        print(f"  exported poses of both ({len(both)} frames): distance "
+              f"median {dist['median_m']}, max {dist['max_m']} m; first "
+              f"frame over 2 cm: {part}")
     return dict(runs=runs, not_ok=not_ok, first_state_diff=first_state,
                 first_inlier_diff=first_inl, failed=failed,
-                ok_failed=ok_failed)
+                ok_failed=ok_failed, pose_distance=dist)
 
 
 def main(argv=None) -> int:
@@ -315,7 +384,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reference", default=None)
     ap.add_argument("--report-only", action="store_true")
     args = ap.parse_args(argv)
-    if args.mode != "rgbd" or args.lidar:
+    if args.mode == "mono" or args.lidar:
         what = "--lidar" if args.lidar else f"--mode {args.mode}"
         raise NotImplementedError(f"not ported yet: {what}")
     if not args.report_only:

@@ -11,6 +11,7 @@ import torch
 
 from geoflowslam_tpu.eval import ate as ate_jax
 from geoflowslam_tpu.ops.extractor import OrbConfig as JOrb
+from geoflowslam_tpu.pipeline.inertial import ImuConfig as JImu
 from geoflowslam_tpu.pipeline.local_mapping import MappingConfig as JMap
 from geoflowslam_tpu.pipeline.loop_closing import LoopConfig as JLoop
 from geoflowslam_tpu.pipeline.system import SystemConfig as JSys
@@ -53,6 +54,23 @@ def test_config_fields_and_defaults_equal(port, ref):
     dp, dr = _defaults(port), _defaults(ref)
     for name in dp:
         assert _plain(dp[name]) == _plain(dr[name]), name
+
+
+def test_imu_config_equal():
+    """ImuConfig: the same fields and defaults (t_bc compared as an array)
+    and the same calibration from calib()."""
+    assert C.ImuConfig.__dataclass_params__.frozen
+    assert [f.name for f in dataclasses.fields(C.ImuConfig)] == \
+        [f.name for f in dataclasses.fields(JImu)]
+    dp, dr = _defaults(C.ImuConfig), _defaults(JImu)
+    for name in dp:
+        np.testing.assert_array_equal(np.asarray(dp[name]),
+                                      np.asarray(dr[name]), err_msg=name)
+    for cfg_p, cfg_r in ((C.ImuConfig(), JImu()),
+                         (C.ImuConfig(freq=100.0, noise_acc=0.01),
+                          JImu(freq=100.0, noise_acc=0.01))):
+        for a, b in zip(cfg_p.calib(), cfg_r.calib()):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6)
 
 
 def test_config_methods_equal():
