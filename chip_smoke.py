@@ -99,7 +99,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
      |v| finite and < 3 m/s, the fused K1 once per frame, K2 launched, K4
      exactly once per loop check and relocalization attempt; frames and ms
      per imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by
-     window width, host syncs a frame (CUDA sync debugging over 30 frames).
+     window width, host syncs a frame (CUDA sync debugging over 30 frames);
+ 13. g1: GeoFlow's G1 combination, the default SystemConfig with use_of,
+     use_icp (n_of_slots 256), use_lidar and use_odom, through run_path
+     (150 frames of the of_icp path's room at 10 fps), the trajectory's
+     world velocity queued through set_odom before every frame, frames
+     G1_BLANK without texture or depth: the gates of 7, 1 map, ICP
+     accepted, OF points appended, the blank frames RECENTLY_LOST and
+     odometry read on >= 1 frame, valid plane factors on >= 50% of the
+     frames after the second KF, a global map of > 500 points, the fused
+     K1 once per frame and K3 once per frame after the first; ms a frame,
+     make_plane_obs ms, the frames that read odometry;
+ 14. inertial_geoflow: inertial_config() with use_icp, use_of and
+     n_of_slots 256 over INERTIAL_GEOFLOW_FRAMES frames: the gates of 12
+     but VIBA2 (8 s reach VIBA1 only; host syncs over GEOFLOW_SYNC), ICP
+     accepted, OF points appended, >= 1 EdgeICP measurement in a VI-BA
+     window (and how many passed their gate), K3 once per frame after the
+     first; what 12 prints; then the EdgeICP factor with information on
+     the card: on one of the path's VI-BA problems with its measured rows
+     at information 1e2 and 1e5, vi_local_ba on the card against the same
+     call on the CPU (KF positions within 1e-4 m, rotations within 1e-4
+     rad, velocities and biases within 1e-4), rel_pose_terms within 1e-5,
+     and the factor moving the KFs at 1e5.
 Each path's launch counts are set to 0 just before it and read just after;
 every path launches the fused K1 once per frame and the per-level K1 and K3
 never. Every kernel has three times: `ms`, the CUDA-event median around its
@@ -111,7 +132,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the six paths and nothing else) with `launch_floor_ms` beside it; the
+over the eight paths and nothing else) with `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -135,15 +156,18 @@ from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
 from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.io.synthetic import (Camera, HardSyntheticSequence,
                                                 SyntheticSequence,
-                                                SyntheticWorld)
+                                                SyntheticWorld,
+                                                smooth_trajectory)
 from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
 from geoflowslam_tpu_torch.ops import matching as MA
 from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
+from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.retrieval import vocab as V
+from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.state.frame import build_frame
 from geoflowslam_tpu_torch.tools import run_hardmode as HM
 
@@ -170,11 +194,17 @@ KERNEL_INFO = {
 N_FRAMES = 150
 FPS = 30.0
 OF_FPS = 10.0
+G1_BLANK = (20, 21)   # g1 frames without texture or depth (odometry read)
 RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
 HARD_FRAMES = 600    # the hard path: 20 s, into the first texture-poor window
 INERTIAL_FRAMES = 420   # the inertial path: 14 s at 30 fps (IMU init ~1 s,
                         # VIBA1 at +5 s, VIBA2 at +10 s)
 SYNC_WINDOW = (300, 330)   # inertial frames whose host syncs are counted
+# the inertial path with GeoFlow's streams: 8 s at 30 fps, through VIBA1
+# (init ~1.1 s, VIBA1 at +5 s), its host syncs counted over GEOFLOW_SYNC;
+# 360 frames (VIBA2) took the whole script near the time limit
+INERTIAL_GEOFLOW_FRAMES = 240
+GEOFLOW_SYNC = (200, 230)
 LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 # K3 vs plain on the card. Samples, template and gradients are equal bit for
 # bit (same float32 operations); only the 441- or 961-term sums run in
@@ -714,7 +744,7 @@ def phase_entry_points(summary):
     (fast_scores_two, klt_track) still launch them on the card. Driven here
     at full width and counted under a key of their own,
     `entry_point_launches`: `launches` and `launches_per_frame` hold only
-    what the five paths counted, which is 0 for these two."""
+    what the paths counted, which is 0 for these two."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(5)
     prev, nxt, pts, guess = _lk_inputs(480, 640, rs, dev)
@@ -739,10 +769,12 @@ def phase_entry_points(summary):
         summary[name]["entry_point_launches"] = launches[name]
 
 
-def run_path(tag, cfg, fps, summary, expect):
+def run_path(tag, cfg, fps, summary, expect, before_frame=None):
     """Drive SlamSystem over N_FRAMES frames of the port's synthetic room
     and hold it to the accuracy gates; the kernels in `expect` must have been
-    launched by this path. Returns the system."""
+    launched by this path. `before_frame(slam, i, gray, depth)`, where
+    given, runs before frame i is tracked and returns the (gray, depth) to
+    track. Returns the system."""
     dev = torch.device("cuda")
     cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
                  width=cfg.frame.orb.width, height=cfg.frame.orb.height)
@@ -763,6 +795,8 @@ def run_path(tag, cfg, fps, summary, expect):
     for i, (gray, depth, rot_cw, t_cw) in enumerate(frames):
         t = i / fps
         t1 = time.perf_counter()
+        if before_frame is not None:
+            gray, depth = before_frame(slam, i, gray, depth)
         slam.track_rgbd(gray, depth, t)
         torch.cuda.synchronize()
         ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
@@ -822,6 +856,86 @@ def phase_of_icp(summary):
         raise AssertionError("the optical-flow stage appended no point")
     if n_icp < 1:
         raise AssertionError("no ICP prediction was accepted")
+
+
+def phase_g1(summary):
+    """GeoFlow's G1 combination at full width: the default SystemConfig
+    with use_of, use_icp (n_of_slots 256), use_lidar and use_odom, through
+    run_path over 150 frames of the of_icp path's room at 10 fps, no
+    vocabulary, the trajectory's world velocity queued through
+    set_odom(v, odom_frame=False) before every frame, and frames G1_BLANK
+    blank (gray flat at 100, no depth: the registration fails with the
+    visual track), so that the frames that fail or start RECENTLY_LOST
+    take the staged step, which predicts from the odometry. Gates: those of
+    run_path, 1 map, >= 1 accepted ICP prediction, optical-flow points
+    appended, the blank frames lost and odometry read on >= 1 frame,
+    valid plane factors on >= 50% of the frames after the second KF, a
+    global map of > 500 points, the fused K1 exactly once per frame, the
+    fused K3 once per frame after the first, K2 launched. Prints ms per
+    frame (median, p90), make_plane_obs ms (synchronised, median, p90) and
+    the frames whose prediction read odometry."""
+    base = SystemConfig()
+    cfg = dataclasses.replace(
+        base, use_of=True, use_icp=True, use_lidar=True, use_odom=True,
+        frame=dataclasses.replace(base.frame, n_of_slots=256))
+    n_kfs, states = [], {}
+
+    def before_frame(slam, i, gray, depth):
+        if i > 0:
+            n_kfs.append(int(slam.ms.kf_valid.sum()))
+            states[i - 1] = slam.state.name
+        slam.set_odom(smooth_trajectory(torch.tensor(i / OF_FPS))[2].numpy(),
+                      odom_frame=False)
+        if i in G1_BLANK:
+            return torch.full_like(gray, 100.0), torch.zeros_like(depth)
+        return gray, depth
+    plane_ms = []
+    make_plane_obs = LD.make_plane_obs
+
+    def timed_plane_obs(*a, **k):
+        t1 = time.perf_counter()
+        out = make_plane_obs(*a, **k)
+        torch.cuda.synchronize()
+        plane_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+    LD.make_plane_obs = timed_plane_obs
+    try:
+        slam = run_path("g1", cfg, OF_FPS, summary,
+                        {"gated_hamming_search": None,
+                         "lk_pyramid": N_FRAMES - 1}, before_frame)
+    finally:
+        LD.make_plane_obs = make_plane_obs
+    n_kfs.append(int(slam.ms.kf_valid.sum()))
+    stats = slam.map_stats()
+    n3d, n2d = slam.of_appended
+    second = next((i for i, k in enumerate(n_kfs) if k >= 2), N_FRAMES)
+    counts = dict(slam.plane_factor_counts)
+    after = [counts.get(round(i / OF_FPS, 4), 0)
+             for i in range(second + 1, N_FRAMES)]
+    share = float(np.mean([c > 0 for c in after])) if after else 0.0
+    n_global = len(slam.global_map.points())
+    lost = [states.get(i) for i in G1_BLANK]
+    print(f"[g1] {stats}; ICP accepted on {slam.n_icp_accepted} frames, "
+          f"carried {slam.n_icp_carried}; OF appended {n3d} 3D-stream and "
+          f"{n2d} 2D-stream points; blank frames {list(G1_BLANK)} ended "
+          f"{lost}")
+    print(f"[g1] plane factors valid on {share * 100:.1f}% of the "
+          f"{len(after)} frames after the second KF (median "
+          f"{np.median(after) if after else 0:.0f} a frame); global map "
+          f"{n_global} points; odometry read on {slam.n_odom_frames} "
+          f"frames, {len(slam._odom_queue)} samples left in the queue")
+    print(f"[g1] make_plane_obs median {np.median(plane_ms):.3f} ms, p90 "
+          f"{np.percentile(plane_ms, 90):.3f} ms over {len(plane_ms)} calls")
+    if stats["n_maps"] != 1:
+        raise AssertionError(f"g1 path ended {stats}")
+    if slam.n_icp_accepted < 1 or n3d + n2d <= 0:
+        raise AssertionError("no ICP prediction accepted or no OF point")
+    if any(x != "RECENTLY_LOST" for x in lost) or slam.n_odom_frames < 1:
+        raise AssertionError(f"blank frames ended {lost}, odometry read on "
+                             f"{slam.n_odom_frames} frames")
+    if not share >= 0.5 or n_global <= 500:
+        raise AssertionError(f"plane factors on {share} of the frames, "
+                             f"global map {n_global} points")
 
 
 def _room(cfg, fps):
@@ -1162,21 +1276,16 @@ def _count_syncs(fn):
     return out, n
 
 
-def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
-    """The RGB-D-inertial path at bench.py's configuration
-    (inertial_config): n_frames of the synthetic room's smooth trajectory
-    at 30 fps with 200 Hz IMU samples (at most 32 a frame) through
-    SlamSystem.track_rgbd_inertial on m12 buffers pre-packed on the card,
-    the shipped vocabulary, loop closing on. Gates: state OK with 1 map,
-    the IMU initialized, VIBA1 and VIBA2 done, ATE over the second half
-    < 5 cm, the final velocity finite and < 3 m/s, the fused K1 once per
-    frame, K2 launched, K4 exactly once per loop check and relocalization
-    attempt. Prints the frames and ms per imu_mode (median, p90), the VI
-    accepted share, VI-BA ms per KF by window width, and the host syncs a
-    frame over SYNC_WINDOW (CUDA sync debugging; those frames are left out
-    of the times)."""
+def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True):
+    """Drive SlamSystem.track_rgbd_inertial over n_frames of the synthetic
+    room's smooth trajectory at 30 fps with 200 Hz IMU samples (at most 32
+    a frame) on m12 buffers pre-packed on the card, with `voc`; time every
+    frame (but those of the `sync` window, whose host syncs are counted
+    with CUDA sync debugging) and every VI-BA, count the loop checks and
+    relocalization attempts, print what the inertial phases report, gate
+    on the IMU initialization and VIBA1 (and VIBA2 with `viba2`), and
+    return (slam, launches, K4 launches expected)."""
     dev = torch.device("cuda")
-    cfg = inertial_config()
     seq = _room(cfg, FPS)
     ts = np.arange(n_frames) / FPS
     t0 = time.perf_counter()
@@ -1193,7 +1302,7 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
         twc[:3, 3] = -r.T @ t_cw.cpu().numpy()
         gt.append((ts[i], twc))
     bufs = [b.cpu().numpy() for b in bufs]
-    print(f"[inertial] pre-rendered {n_frames} m12 frames 640x480 and their "
+    print(f"[{tag}] pre-rendered {n_frames} m12 frames 640x480 and their "
           f"IMU samples in {time.perf_counter() - t0:.2f} s")
     slam = SlamSystem(cfg, dev, vocab=voc)
     checks, attempts, viba = [], [], []
@@ -1220,7 +1329,7 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
                 return slam.track_rgbd_inertial(bufs[i], None, *imu[i],
                                                 ts[i])
             t1 = time.perf_counter()
-            if SYNC_WINDOW[0] <= i < SYNC_WINDOW[1]:
+            if sync[0] <= i < sync[1]:
                 _, n = _count_syncs(step)
                 n_syncs += n
             else:
@@ -1229,7 +1338,7 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
             ms = (time.perf_counter() - t1) * 1000.0
             mode = next((m for m, n in slam.imu_modes.items()
                          if n != before.get(m, 0)), "init")
-            if not SYNC_WINDOW[0] <= i < SYNC_WINDOW[1]:
+            if not sync[0] <= i < sync[1]:
                 by_mode.setdefault(mode, []).append(ms)
     finally:
         LM.vi_ba_step = vi_ba_step
@@ -1242,38 +1351,165 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
     imu_t = slam.imu
     v = imu_t.body.v.cpu().numpy()
     n_vi = sum(n for m, n in slam.imu_modes.items() if m in ("kf", "prior"))
-    print(f"[inertial] {stats}, {len(traj)} poses, ATE over the second half "
+    print(f"[{tag}] {stats}, {len(traj)} poses, ATE over the second half "
           f"{ate['ate_rmse'] * 100:.3f} cm; IMU initialized "
           f"{imu_t.initialized} at t = {imu_t.init_time} s, VIBA1 "
           f"{imu_t.viba1_done}, VIBA2 {imu_t.viba2_done}; |v| "
           f"{np.linalg.norm(v):.3f} m/s; n_lost {slam.n_lost}")
-    print(f"[inertial] frames per imu_mode {slam.imu_modes}; VI accepted "
+    print(f"[{tag}] frames per imu_mode {slam.imu_modes}; VI accepted "
           f"on {slam.n_vi_accepted} of {n_vi} VI frames")
     for mode, v_ms in sorted(by_mode.items()):
-        print(f"[inertial] ms/frame in mode {mode}: median "
+        print(f"[{tag}] ms/frame in mode {mode}: median "
               f"{np.median(v_ms):.2f}, p90 {np.percentile(v_ms, 90):.2f} "
               f"over {len(v_ms)} frames")
     for kw in sorted({k for k, _ in viba}):
         v_kw = [m for k, m in viba if k == kw]
-        print(f"[inertial] VI-BA kw {kw}: {len(v_kw)} runs, median "
+        print(f"[{tag}] VI-BA kw {kw}: {len(v_kw)} runs, median "
               f"{np.median(v_kw):.2f} ms, max {np.max(v_kw):.2f} ms")
-    n_win = SYNC_WINDOW[1] - SYNC_WINDOW[0]
-    print(f"[inertial] host syncs a frame over frames {SYNC_WINDOW[0]}.."
-          f"{SYNC_WINDOW[1] - 1}: {n_syncs / n_win:.2f}; {len(checks)} loop "
+    n_win = sync[1] - sync[0]
+    print(f"[{tag}] host syncs a frame over frames {sync[0]}.."
+          f"{sync[1] - 1}: {n_syncs / n_win:.2f}; {len(checks)} loop "
           f"checks, {len(attempts)} relocalization attempts")
     if stats["state"] != "OK" or stats["n_maps"] != 1:
-        raise AssertionError(f"inertial path ended {stats}")
-    if not (imu_t.initialized and imu_t.viba1_done and imu_t.viba2_done):
+        raise AssertionError(f"{tag} path ended {stats}")
+    if not (imu_t.initialized and imu_t.viba1_done
+            and (imu_t.viba2_done or not viba2)):
         raise AssertionError("IMU initialization or VIBA1/VIBA2 missing")
     if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
         raise AssertionError("non-finite or misshapen poses")
     if not ate["ate_rmse"] < 0.05:
-        raise AssertionError(f"inertial ATE {ate['ate_rmse']} m >= 5 cm")
+        raise AssertionError(f"{tag} ATE {ate['ate_rmse']} m >= 5 cm")
+    return slam, launches, len(checks) + len(attempts)
+
+
+def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
+    """The RGB-D-inertial path at bench.py's configuration
+    (inertial_config) through _drive_inertial, the shipped vocabulary, loop
+    closing on. Gates: state OK with 1 map, the IMU initialized, VIBA1 and
+    VIBA2 done, ATE over the second half < 5 cm, the final velocity finite
+    and < 3 m/s, the fused K1 once per frame, K2 launched, K4 exactly once
+    per loop check and relocalization attempt. Prints the frames and ms per
+    imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by window
+    width, and the host syncs a frame over SYNC_WINDOW (CUDA sync
+    debugging; those frames are left out of the times)."""
+    slam, launches, n_k4 = _drive_inertial("inertial", inertial_config(),
+                                           voc, n_frames)
+    v = slam.imu.body.v.cpu().numpy()
     if not (np.all(np.isfinite(v)) and np.linalg.norm(v) < 3.0):
         raise AssertionError(f"velocity {v}")
     _count(summary, "inertial", launches, n_frames,
-           {"gated_hamming_search": None,
-            "hamming_best2": len(checks) + len(attempts)})
+           {"gated_hamming_search": None, "hamming_best2": n_k4})
+
+
+def phase_inertial_geoflow(summary, voc,
+                           n_frames: int = INERTIAL_GEOFLOW_FRAMES):
+    """bench.py's operating point with GeoFlow's streams on:
+    inertial_config() with use_icp, use_of and n_of_slots 256, through
+    _drive_inertial over 240 frames. Gates: those of the inertial phase
+    but VIBA2 (VIBA1 only), >= 1 accepted ICP prediction, >= 1 EdgeICP row
+    with an inter-KF measurement in a VI-BA window, optical-flow points
+    appended, the fused K3 once per frame after the first, and the EdgeICP
+    factor on the card (_check_edge_icp on the latest of the path's last
+    four VI-BA problems that has a measurement). Prints the inter-KF
+    registrations and how many passed their gate (its `error < 0.01` is
+    the reference's mean point distance, which a 5 cm voxel cloud of the
+    room does not reach)."""
+    base = inertial_config()
+    cfg = dataclasses.replace(
+        base, use_icp=True, use_of=True,
+        frame=dataclasses.replace(base.frame, n_of_slots=256))
+    vi_local_ba, kept = VIBA.vi_local_ba, []
+
+    def keep_problem(prob, *a, **k):
+        # the last few VI-BA problems with EdgeICP rows (read after the run:
+        # no host sync here)
+        if prob.icp is not None:
+            kept[:] = kept[-3:] + [(prob, a)]
+        return vi_local_ba(prob, *a, **k)
+    VIBA.vi_local_ba = keep_problem
+    try:
+        slam, launches, n_k4 = _drive_inertial(
+            "inertial_geoflow", cfg, voc, n_frames, GEOFLOW_SYNC, viba2=False)
+    finally:
+        VIBA.vi_local_ba = vi_local_ba
+    gates = [bool(rel[3]) for rel in slam._kf_icp_rel.values()]
+    n_rows, n_passed = slam.n_edge_icp
+    n3d, n2d = slam.of_appended
+    print(f"[inertial_geoflow] ICP accepted on {slam.n_icp_accepted} frames,"
+          f" carried {slam.n_icp_carried}; {len(gates)} inter-KF "
+          f"registrations held, {sum(gates)} with a passed gate; EdgeICP "
+          f"rows into VI-BA: {n_rows} with a measurement, {n_passed} of "
+          f"them with a passed gate; OF appended {n3d} 3D-stream and {n2d} "
+          f"2D-stream points")
+    if slam.n_icp_accepted < 1 or n3d + n2d <= 0:
+        raise AssertionError("no ICP prediction accepted or no OF point")
+    measured = [x for x in kept if bool((x[0].icp.t != 0).any())]
+    if n_rows < 1 or not measured:
+        raise AssertionError("no EdgeICP measurement entered VI-BA")
+    _count(summary, "inertial_geoflow", launches, n_frames,
+           {"gated_hamming_search": None, "hamming_best2": n_k4,
+            "lk_pyramid": n_frames - 1})
+    _check_edge_icp(*measured[-1])
+
+
+def _to(x, dev):
+    """A tensor, or a NamedTuple of them (nested, None kept), on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(f, dev) for f in x))
+    return x
+
+
+def _check_edge_icp(prob, args):
+    """The EdgeICP factor with information on the card. The main path's
+    measured rows carry no information (no registration of the room passes
+    its gate), so on one of its VI-BA problems the measured rows get
+    information 1e2 (the reference's weight) and 1e5; for each,
+    vi_local_ba on the card and on the CPU from the same inputs: KF
+    positions within 1e-4 m and rotations within 1e-4 rad, velocities and
+    biases within 1e-4; and rel_pose_terms' residual and Jacobians on the
+    measured rows within 1e-5 of the CPU's. Prints how far the factor
+    moved the KF positions from the solve without it, and gates on a move
+    at 1e5."""
+    icp = prob.icp
+    rows = (icp.t != 0).any(-1)
+    r, t = prob.vis.kf_rot, prob.vis.kf_t
+    terms = (r[:-1][rows], t[:-1][rows], r[1:][rows], t[1:][rows],
+             icp.rot[rows], icp.t[rows])
+    got = VIBA.rel_pose_terms(*terms)
+    want = VIBA.rel_pose_terms(*(_to(x, "cpu") for x in terms))
+    err_terms = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(got, want))
+    free, _ = VIBA.vi_local_ba(prob._replace(icp=None), *args)
+    line = [f"{int(rows.sum())} measured rows of {rows.numel()}, kw "
+            f"{r.shape[0]}; rel_pose_terms max |card - CPU| {err_terms:.2e}"]
+    moved = {}
+    for info in (1e2, 1e5):
+        p = prob._replace(icp=icp._replace(info=torch.where(
+            rows, torch.tensor(info, device=rows.device), 0.0)))
+        t1 = time.perf_counter()
+        out, _ = VIBA.vi_local_ba(p, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        ref, _ = VIBA.vi_local_ba(_to(p, "cpu"), *args)
+        d_t = float((out.vis.kf_t.cpu() - ref.vis.kf_t).abs().max())
+        d_r = float(torch.linalg.matrix_norm(
+            out.vis.kf_rot.cpu() - ref.vis.kf_rot).max()) / np.sqrt(2.0)
+        d_vb = max(float((out.kf_vel.cpu() - ref.kf_vel).abs().max()),
+                   float((out.kf_bias.cpu() - ref.kf_bias).abs().max()))
+        moved[info] = float((out.vis.kf_t - free.vis.kf_t).abs().max())
+        line.append(f"info {info:g}: {ms:.2f} ms on the card, max |card - "
+                    f"CPU| {d_t:.2e} m, {d_r:.2e} rad, velocity/bias "
+                    f"{d_vb:.2e}; moved the KFs by {moved[info]:.2e} m")
+        if not (d_t < 1e-4 and d_r < 1e-4 and d_vb < 1e-4):
+            raise AssertionError(f"EdgeICP VI-BA at info {info:g}: card and "
+                                 f"CPU differ ({d_t}, {d_r}, {d_vb})")
+    print("[inertial_geoflow] EdgeICP on the card: " + "; ".join(line))
+    if not err_terms < 1e-5:
+        raise AssertionError(f"rel_pose_terms differ by {err_terms}")
+    if not moved[1e5] > 1e-6:
+        raise AssertionError("the EdgeICP factor moved no KF at info 1e5")
 
 
 def new_summary():
@@ -1298,11 +1534,13 @@ def main() -> int:
     phase_entry_points(summary)
     phase_rgbd(summary)
     phase_of_icp(summary)
+    phase_g1(summary)
     voc = _vocabulary()
     phase_reloc(summary, voc)
     phase_merge(summary, voc)
     phase_hard(summary, voc)
     phase_inertial(summary, voc)
+    phase_inertial_geoflow(summary, voc)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_frame", "entry_point_launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

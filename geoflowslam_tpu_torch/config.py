@@ -2,15 +2,16 @@
 
 Frozen copies of the JAX package's OrbConfig (ops/extractor.py), FrameConfig
 (state/frame.py), TrackConfig (pipeline/tracking.py), MappingConfig
-(pipeline/local_mapping.py), LoopConfig (pipeline/loop_closing.py) and
-ImuConfig (pipeline/inertial.py) and SystemConfig (pipeline/system.py),
-with the same fields and defaults. The port cannot import the JAX package
+(pipeline/local_mapping.py), LoopConfig (pipeline/loop_closing.py),
+ImuConfig (pipeline/inertial.py), LidarConfig (pipeline/lidar_mapping.py)
+and SystemConfig (pipeline/system.py), with the same fields and defaults.
+The port cannot import the JAX package
 (its __init__ imports jax), so the fields are copied here and a CPU test
 keeps them equal to the originals.
 
-SystemConfig carries every field of the reference, including the sensor
-options the port does not have yet (lidar, odometry, stereo fisheye); the
-port's SlamSystem refuses a config that turns any of them on. `loop` takes
+SystemConfig carries every field of the reference, including the options
+the port does not have yet (stereo fisheye, other sensors); the port's
+SlamSystem refuses a config that turns any of them on. `loop` takes
 this module's LoopConfig, `imu` this module's ImuConfig.
 """
 from __future__ import annotations
@@ -150,6 +151,17 @@ class ImuConfig:
         from geoflowslam_tpu_torch.imu.preintegration import ImuCalib
         return ImuCalib.create(self.t_bc, self.noise_gyro, self.noise_acc,
                                self.walk_gyro, self.walk_acc, self.freq)
+
+
+@dataclasses.dataclass(frozen=True)
+class LidarConfig:
+    local_capacity: int = 16384
+    local_voxel: float = 0.1       # LidarMapping.LocalResolution
+    global_voxel: float = 0.2      # LidarMapping.GlobalResolution
+    window_kfs: int = 30           # sliding window of KF slots
+    knn: int = 5                   # plane-fit neighbours
+    max_plane_dist: float = 0.3    # correspondence gate (m)
+    planarity_eps: float = 0.03    # plane-fit residual gate (m)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -164,6 +164,50 @@ def se3_log(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([rho, phi], dim=-1)
 
 
+def se3_right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SE(3) at the twist xi = [rho, phi]
+    ([..., 6] -> [..., 6, 6]): log(exp(xi) exp(d)) = xi + Jr^-1(xi) d to
+    first order. Jr^-1(xi) = Jl^-1(-xi) = [[J^-1, -J^-1 Q J^-1], [0, J^-1]]
+    with J the SO(3) left Jacobian and Q Barfoot's coupling block, both at
+    -xi. Below theta = 0.5 the coefficients are their Taylor series (their
+    closed forms cancel badly in float32)."""
+    rho, phi = -xi[..., :3], -xi[..., 3:]
+    th2 = torch.sum(phi * phi, dim=-1)
+    th = torch.sqrt(torch.clamp_min(th2, _EPS * _EPS))
+    small = th2 < 0.25
+    th_c = torch.where(small, torch.ones_like(th), th)   # closed forms only
+    s, c = torch.sin(th_c), torch.cos(th_c)
+    t2, t4, t6 = th2, th2 * th2, th2 * th2 * th2
+    # J^-1 = I - phi^ / 2 + cot_term phi^ phi^
+    cot_term = torch.where(small,
+                          1 / 12 + t2 / 720 + t4 / 30240 + t6 / 1209600,
+                          1 / th_c ** 2 - (1 + c) / (2 * th_c * s))
+    c1 = torch.where(small, 1 / 6 - t2 / 120 + t4 / 5040 - t6 / 362880,
+                    (th_c - s) / th_c ** 3)
+    c2 = torch.where(small, 1 / 24 - t2 / 720 + t4 / 40320 - t6 / 3628800,
+                    (th_c ** 2 + 2 * c - 2) / (2 * th_c ** 4))
+    c3 = torch.where(small, 1 / 120 - t2 / 2520 + t4 / 120960
+                    - t6 / 9979200,
+                    (2 * th_c - 3 * s + th_c * c) / (2 * th_c ** 5))
+    p, r = hat(phi), hat(rho)
+    pr, rp = p @ r, r @ p
+    prp = pr @ p
+    q = (0.5 * r + c1[..., None, None] * (pr + rp + prp)
+         + c2[..., None, None] * (p @ pr + rp @ p - 3.0 * prp)
+         + c3[..., None, None] * (prp @ p + p @ prp))
+    jinv = _eye_like(p) - 0.5 * p + cot_term[..., None, None] * (p @ p)
+    top = torch.cat([jinv, -jinv @ q @ jinv], dim=-1)
+    bottom = torch.cat([torch.zeros_like(jinv), jinv], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_adjoint(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Adjoint of (R, t) on twists [rho, phi]: [[R, t^ R], [0, R]]."""
+    top = torch.cat([rot, hat(t) @ rot], dim=-1)
+    bottom = torch.cat([torch.zeros_like(rot), rot], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def se3_compose(ra, ta, rb, tb):
     """(Ra, ta) * (Rb, tb): apply b first, then a."""
     return ra @ rb, torch.einsum("...ij,...j->...i", ra, tb) + ta

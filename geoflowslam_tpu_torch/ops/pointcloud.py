@@ -1,6 +1,7 @@
 """Point-cloud primitives (port of the RGB-D part of
-geoflowslam_tpu/ops/pointcloud.py): depth back-projection, voxel
-downsampling, brute-force kNN and the GICP covariances. Clouds are
+geoflowslam_tpu/ops/pointcloud.py): depth back-projection, the edge/surf
+feature cloud of the lidar factors, voxel downsampling, brute-force kNN and
+the GICP covariances. Clouds are
 fixed-capacity [P, 3] tensors with validity masks.
 
 The kNN distance matrix is |q|^2 - 2 q.t + |t|^2 through one matmul, as the
@@ -39,6 +40,46 @@ def depth_to_cloud(depth: torch.Tensor, fx, fy, cx, cy, stride: int = 3,
     return pts, mask
 
 
+def lidar_feature_cloud(depth: torch.Tensor, fx, fy, cx, cy, stride: int = 3,
+                        max_depth: float = 10.0, min_depth: float = 0.05,
+                        edge_curv: float = 0.1, edges_per_row: int = 10):
+    """SSL_SLAM2-style edge/surf features of the organized depth cloud: the
+    rows of the strided depth image are the scan lines; the curvature
+    c_j = |sum_{k=-5..5} p_{j+k} - 10 p_j|^2 / |p_j|^2 along each row (the
+    ends of a row, where the window wraps, are masked); per row the
+    `edges_per_row` highest local maxima (+-5 columns) above `edge_curv`
+    are edges, the other points with a full window are surf. Returns
+    ([P, 3] points, [P] valid, [P] is_edge) in depth_to_cloud's layout."""
+    hs, ws = depth[::stride, ::stride].shape
+    pts, mask = depth_to_cloud(depth, fx, fy, cx, cy, stride, max_depth,
+                               min_depth)
+    p, ok = pts.reshape(hs, ws, 3), mask.reshape(hs, ws)
+    pz = torch.where(ok[..., None], p, 0.0)
+    acc = -11.0 * pz
+    win_ok = ok
+    for k in range(-5, 6):
+        acc = acc + torch.roll(pz, -k, dims=1)
+        win_ok = win_ok & torch.roll(ok, -k, dims=1)
+    col = torch.arange(ws, device=depth.device)[None, :]
+    win_ok = win_ok & (col >= 5) & (col < ws - 5)
+    dist2 = torch.clamp_min(torch.sum(p * p, dim=-1), 1e-6)
+    curv = torch.where(win_ok, torch.sum(acc * acc, dim=-1) / dist2, -1.0)
+    local_max = curv
+    for k in range(1, 6):
+        local_max = torch.maximum(local_max, torch.roll(curv, k, dims=1))
+        local_max = torch.maximum(local_max, torch.roll(curv, -k, dims=1))
+    is_peak = (curv >= local_max) & (curv > edge_curv)
+    topv, topi = topk_stable(torch.where(is_peak, curv, -1.0),
+                             min(edges_per_row, ws))
+    # top-k indices are distinct within a row: one write each
+    keep = torch.zeros((hs, ws), dtype=torch.bool, device=depth.device)
+    keep = keep.scatter(1, topi, topv > 0)
+    is_edge = keep & win_ok
+    is_surf = win_ok & ~is_edge
+    valid = (is_edge | is_surf) & ok
+    return p.reshape(-1, 3), valid.reshape(-1), is_edge.reshape(-1)
+
+
 def _voxel_keys(pts: torch.Tensor, valid: torch.Tensor, voxel: float):
     """int32-range voxel key per point, 10 bits per axis (+-25 m at 5 cm);
     invalid points get INVALID_KEY and sort last."""
@@ -47,10 +88,10 @@ def _voxel_keys(pts: torch.Tensor, valid: torch.Tensor, voxel: float):
     return torch.where(valid, key, INVALID_KEY)
 
 
-def voxel_downsample(pts: torch.Tensor, valid: torch.Tensor, voxel: float,
-                     max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Keep the first point per voxel after a stable key sort, compacted to
-    [max_out] (deterministic small_gicp::voxelgrid_sampling analogue)."""
+def voxel_select(pts: torch.Tensor, valid: torch.Tensor, voxel: float,
+                 max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(indices [max_out], validity [max_out]) of the first point per voxel
+    after a stable key sort, compacted to the front."""
     key = _voxel_keys(pts, valid, voxel)
     order = torch.argsort(key, stable=True)
     ks = key[order]
@@ -58,8 +99,15 @@ def voxel_downsample(pts: torch.Tensor, valid: torch.Tensor, voxel: float,
                        ks[1:] != ks[:-1]])
     first = first & (ks != INVALID_KEY)
     rank = torch.argsort((~first).to(torch.int8), stable=True)
-    sel = order[rank[:max_out]]
-    return pts[sel], first[rank[:max_out]]
+    return order[rank[:max_out]], first[rank[:max_out]]
+
+
+def voxel_downsample(pts: torch.Tensor, valid: torch.Tensor, voxel: float,
+                     max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep the first point per voxel after a stable key sort, compacted to
+    [max_out] (deterministic small_gicp::voxelgrid_sampling analogue)."""
+    sel, ok = voxel_select(pts, valid, voxel, max_out)
+    return pts[sel], ok
 
 
 def knn_indices(query: torch.Tensor, q_valid: torch.Tensor,

@@ -19,7 +19,7 @@ per tracked frame with the corrections propagated on write-back
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -447,13 +447,15 @@ def _batched_hamming(descs: torch.Tensor) -> torch.Tensor:
 class VIWindow(NamedTuple):
     """A temporal KF window for VI-BA: slots oldest first, end-padded with
     k_max up to the window size (kw 8, 16 for VIBA1/VIBA2, 10 at the IMU
-    initialization); segment i joins slots i and i+1."""
+    initialization); segment i joins slots i and i+1. `icp` holds the
+    segments' EdgeICP factors with use_icp."""
     slots: torch.Tensor        # [KW] long
     slot_valid: torch.Tensor   # [KW] bool
     segs: VIBA.ImuSegments
     r_cb: torch.Tensor         # [3, 3]
     t_cb: torch.Tensor         # [3]
     walk_info: torch.Tensor    # [6, 6]
+    icp: Optional[VIBA.RelPoseFactors] = None
 
 
 def vi_ba_step(ms: M.MapState, win: VIWindow, cfg: MappingConfig):
@@ -469,7 +471,7 @@ def vi_ba_step(ms: M.MapState, win: VIWindow, cfg: MappingConfig):
     prob = VIBA.VIBAProblem(
         vis=prob_vis, kf_vel=ms.kf_vel[kr], kf_bias=ms.kf_bias[kr],
         segs=win.segs, r_cb=win.r_cb, t_cb=win.t_cb,
-        walk_info=win.walk_info)
+        walk_info=win.walk_info, icp=win.icp)
     out, obs_inl = VIBA.vi_local_ba(prob, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
                                     cfg.bf)
     ms = writeback_ba(ms, out.vis, obs_inl, win.slots, win.slot_valid,

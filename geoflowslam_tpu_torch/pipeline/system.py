@@ -50,7 +50,40 @@ least every 0.5 s, and while lost (InsertKFsWhenLost). Until the IMU is
 initialized a KF takes the reference's staged KF step, which attempts the
 initialization; after it, the mapping step runs VI-BA over the temporal
 window (8 KFs, 16 for VIBA1 and VIBA2). The IMU path runs on the default
-(fused) path only: it needs a vocabulary and record_reproj_err off.
+(fused) path only: it needs a vocabulary and record_reproj_err off. An
+ICP-carried frame there rides the registered pose with the dead-reckoned
+body state, as the reference's fused step keeps it.
+
+With `use_icp` every KF is also registered by GICP against the previous
+KF's cloud (the last 40 KF clouds are kept); with the IMU a registration
+that converged with >= 400 inliers, error < 0.01 and a translation within
+0.1 m of its start (a device-side gate, or a host-side one on the staged KF
+step) is an EdgeICP factor of VI-BA, information 1e2. With `use_of` the
+optical-flow stage runs beside the IMU too, from the predicted pose.
+
+With `use_lidar` (which turns on the frame's edge/surf feature cloud) every
+frame refines its pose with the point-to-plane factors of its cloud against
+the sliding local map (pipeline/lidar_mapping.py), 2 rounds x 5 GN
+iterations over reprojection and planes, its bindings cut to the inliers:
+on the fused path on every frame (an empty map yields no valid factor), on a
+staged frame only when it tracked and the map holds points. A KF from a
+tracked frame then takes the reference's staged KF step (create, local BA or
+VI-BA, fusion and culling, the cloud into the local map at the optimized KF
+pose and into the global map, loop detection; tracking goes on from the
+KF's pose and live bindings without the motion model); the KFs of ICP-
+carried and lost frames take the mapping step, their cloud into the global
+map without a host read (GlobalMap.add_lazy).
+
+With `use_odom`, `set_odom` queues base velocities. A frame that the
+reference runs through its staged step (with record_reproj_err every frame;
+without a vocabulary every frame that starts RECENTLY_LOST) and before the
+IMU is initialized predicts its position from the last pose moved by the
+mean queued velocity times the frame gap, keeping the predicted rotation,
+and empties the queue; on the other frames the samples pile up, as in the
+reference. The reference's staged re-run of a failed fused frame is folded
+into the port's fallbacks, which search from the last pose; with queued
+odometry they first search from the re-run's odometry prediction (its gap
+is 0: the predicted rotation at the last position).
 
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
@@ -71,12 +104,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from geoflowslam_tpu_torch.config import SystemConfig
+from geoflowslam_tpu_torch.config import LidarConfig, SystemConfig
 from geoflowslam_tpu_torch.imu import preintegration as pre
 from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.pipeline import inertial as IN
+from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import of_tracking as OF
 from geoflowslam_tpu_torch.pipeline import reloc as R
@@ -84,6 +118,7 @@ from geoflowslam_tpu_torch.pipeline import tracking as T
 from geoflowslam_tpu_torch.pipeline.loop_closing import LoopCloser
 from geoflowslam_tpu_torch.retrieval import kf_database as DBD
 from geoflowslam_tpu_torch.retrieval import vocab as Vv
+from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
@@ -98,14 +133,9 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D, RGB-D-inertial, OF/ICP,
-    relocalization and loop-closing paths."""
-    off = {"use_odom": not cfg.use_odom, "use_lidar": not cfg.use_lidar,
-           # the inter-KF EdgeICP factors of VI-BA and the OF stage beside
-           # the IMU are not ported yet
-           "imu with use_icp": cfg.imu is None or not cfg.use_icp,
-           "imu with use_of": cfg.imu is None or not cfg.use_of,
-           "stereo_fisheye": cfg.stereo_fisheye is None,
+    """Raise on options outside the ported RGB-D and RGB-D-inertial paths
+    (with OF, ICP, lidar, odometry, relocalization and loop closing)."""
+    off = {"stereo_fisheye": cfg.stereo_fisheye is None,
            "local_ba_every_kf=False": cfg.local_ba_every_kf,
            f"sensor={cfg.sensor!r}": cfg.sensor == "rgbd"}
     bad = [name for name, ok in off.items() if not ok]
@@ -126,6 +156,10 @@ class SlamSystem:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamSystem: CUDA device requested but "
                                "torch.cuda.is_available() is False")
+        if cfg.use_lidar and not cfg.frame.lidar_features:
+            # the point-to-plane factors take the edge/surf feature cloud
+            cfg = dataclasses.replace(cfg, frame=dataclasses.replace(
+                cfg.frame, lidar_features=True))
         check_config(cfg)
         if cfg.imu is not None and (vocab is None or cfg.record_reproj_err):
             raise NotImplementedError(
@@ -199,9 +233,28 @@ class SlamSystem:
         self.f2f_reproj: list = []
         self.f2m_reproj: list = []
         self._gba = LM.AsyncGBA(self.mcfg) if cfg.loop is not None else None
-        # slot -> (cloud, valid) of the last 40 KFs with use_icp, for the
-        # loop closer's use_icp_loop refinement
+        # with use_icp: slot -> (cloud, valid) of the last 40 KFs (the
+        # inter-KF registrations and the loop closer's use_icp_loop), and
+        # slot -> (rot, t, previous slot, gate) of the registration T_cw[slot]
+        # T_cw[prev]^-1 (the EdgeICP factors of VI-BA)
         self._kf_clouds: dict = {}
+        self._kf_icp_rel: dict = {}
+        self._last_kf_slot: Optional[int] = None
+        # EdgeICP rows that entered VI-BA: with a measurement, and of those
+        # with a passed gate (device counters)
+        self._edge_icp_rows = torch.zeros(2, dtype=torch.long, device=dev)
+        # use_lidar: the sliding local map, the global map, and per frame
+        # the number of valid plane factors (device scalars)
+        self._lidar_cfg = LidarConfig()
+        self.lidar_map = (LD.create_local_map(self._lidar_cfg, dev)
+                          if cfg.use_lidar else None)
+        self.global_map = (LD.GlobalMap(self._lidar_cfg) if cfg.use_lidar
+                           else None)
+        self._plane_log: list = []
+        # use_odom: queued (frame, velocity) samples, and the frames whose
+        # prediction consumed them
+        self._odom_queue: list = []
+        self.n_odom_frames = 0
         # the IMU: preintegration, body state and initialization, and the
         # marginal information of the last frame's VI state (the next
         # frame's prior; None after a KF or a rejected VI frame)
@@ -250,7 +303,8 @@ class SlamSystem:
                     self.imu.preintegrate_frame(*imu_in, timestamp)
                 self._initialize(frame, timestamp)
             elif self.imu is not None:
-                twc = self._track_frame_inertial(frame, imu_in, timestamp)
+                frame, twc = self._track_frame_inertial(frame, imu_in,
+                                                        timestamp)
             else:
                 frame, twc = self._track_frame(frame, timestamp)
         if self._gba is not None and self._gba.active and self._gba.step():
@@ -300,6 +354,35 @@ class SlamSystem:
         """Frames whose ICP registration passed the predictor's gates."""
         return int(self._icp_accepted)
 
+    @property
+    def n_edge_icp(self):
+        """(EdgeICP rows with a measurement, of those with a passed gate),
+        summed over the VI-BA windows they entered."""
+        return tuple(int(x) for x in self._edge_icp_rows.cpu())
+
+    @property
+    def plane_factor_counts(self):
+        """[(t, valid point-to-plane factors)] of the frames that ran the
+        lidar stage (the last 2048 to 4096)."""
+        if not self._plane_log:
+            return []
+        n = torch.stack([c for _, c in self._plane_log]).cpu().tolist()
+        return [(t, int(c)) for (t, _), c in zip(self._plane_log, n)]
+
+    def set_odom(self, vel, odom_frame: bool = True):
+        """Queue a base-velocity sample (Tracking::GrabOdomData). With
+        `odom_frame` it is in the robot's odometry frame and is rotated into
+        the camera frame by `r_odom_cam` (identity when unset); with
+        odom_frame=False it is a world-frame velocity."""
+        v = np.asarray(_host(vel), np.float32)
+        if odom_frame and self.cfg.r_odom_cam is not None:
+            r = np.asarray(self.cfg.r_odom_cam, np.float32).reshape(3, 3)
+            self._odom_queue.append(("cam", r @ v))
+        elif odom_frame:
+            self._odom_queue.append(("cam", v))
+        else:
+            self._odom_queue.append(("world", v))
+
     def current_pose_wc(self) -> np.ndarray:
         """Twc 4x4 (camera-to-world), float64."""
         return _twc(self.cur_rot.cpu().numpy(), self.cur_t.cpu().numpy())
@@ -345,9 +428,15 @@ class SlamSystem:
         return self._reloc_db
 
     def reset_active_map(self):
-        """System::ResetActiveMap: reinitialize in a fresh Atlas map."""
+        """System::ResetActiveMap: reinitialize in a fresh Atlas map; the
+        KF clouds, EdgeICP measurements and local cloud map of the old one
+        go."""
         self.ms = M.create_new_map(self.ms)
         self._kf_clouds.clear()
+        self._kf_icp_rel.clear()
+        self._last_kf_slot = None
+        if self.lidar_map is not None:
+            self.lidar_map = LD.create_local_map(self._lidar_cfg, self.device)
         self._restart()
 
     # -- internals -------------------------------------------------------------
@@ -454,22 +543,34 @@ class SlamSystem:
                                      last_t)
         else:
             pr, pt = last_rot, last_t
+        fused = self._fused_mode()
+        if (cfg.use_odom and self._odom_queue
+                and (cfg.record_reproj_err
+                     or (self.vocab is None
+                         and self.state != TrackingState.OK))):
+            pr, pt = self._odom_predict(pr, pt, timestamp)
         icp_ok = None
         if cfg.use_icp and self.last_frame is not None:
             pr, pt, icp_ok = self._icp_predict(frame, pr, pt)
-        extra_obs = of_innov = None
-        if (cfg.use_of and self.last_frame is not None
-                and cfg.frame.n_of_slots > 0):
-            frame, extra_obs, n3d, n2d, of_innov = OF.of_dual_stream(
-                self.ms, self.last_frame, frame, self.last_obs_mp, pr, pt,
-                self._gen, self.tcfg, OF.OFConfig(), cfg.frame.n_of_slots)
-            self._of_last = torch.stack([n3d, n2d])
-            self._of_total = self._of_total + self._of_last
+        frame, extra_obs, of_innov = self._of_stage(frame, pr, pt)
         res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
                                         pt, self.tcfg, self.last_levels,
                                         extra_obs=extra_obs)
         n1 = int(res.n_inliers)
-        fused = self._fused_mode()
+        # the reference's staged step: from the start with record_reproj_err,
+        # or as the re-run of a failed frame (the fallbacks below)
+        staged = cfg.record_reproj_err or (n1 < min_ok and not fused)
+        if (n1 < min_ok and not fused and cfg.use_odom and self._odom_queue
+                and not (icp_ok is not None and bool(icp_ok))):
+            # the reference re-runs a failed frame that ICP did not carry
+            # through its staged step, which predicts from the odometry
+            # after the dispatch has stamped the frame's time: a zero gap,
+            # the predicted rotation at the last position
+            res = T.track_with_motion_model(
+                self.ms, frame, self.last_obs_mp,
+                *self._odom_predict(pr, pt, self.last_time), self.tcfg,
+                self.last_levels, extra_obs=extra_obs)
+            n1 = int(res.n_inliers)
         if n1 < min_ok and not fused:
             # search wider from the unpredicted pose
             wide = dataclasses.replace(self.tcfg, search_radius_mm=40.0)
@@ -502,6 +603,11 @@ class SlamSystem:
             # texture; they feed the pose solve but not the health gate
             n2 = n2 - torch.sum((of_innov < 1.0) & (res2.obs_mp >= 0))
         n2 = int(n2)
+        if cfg.use_lidar and (not staged or (
+                n2 >= min_ok and bool(self.lidar_map.valid.any()))):
+            # the refinement's inlier count replaces the health count
+            res2 = self._lidar_refine(frame, ms2, res2, timestamp)
+            n2 = int(res2.n_inliers)
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
@@ -548,7 +654,8 @@ class SlamSystem:
             if timestamp - self._last_kf_time >= 0.5:
                 no_obs = torch.full_like(res.obs_mp, M.NO_MP)
                 self._insert_keyframe(frame, timestamp,
-                                      T.TrackResult(pr, pt, no_obs, 0), 0)
+                                      T.TrackResult(pr, pt, no_obs, 0), 0,
+                                      fused_kf=True)
             self._kf_watchdog(timestamp)
             return frame, None
         self.n_lost += 1
@@ -579,8 +686,9 @@ class SlamSystem:
         its host decisions). `imu_mode`: "off" without samples, "raw" until
         the IMU is initialized (preintegrate only), then "kf" (VI against
         the last KF-anchored state) or "prior" (joint with the last frame's
-        state under its marginal). Returns the Twc recorded mid-step or
-        None."""
+        state under its marginal). Returns the frame with its OF slots
+        filled and the Twc recorded mid-step, or None when the pose is still
+        to record."""
         cfg, imu = self.cfg, self.imu
         min_ok = cfg.min_inliers_ok
         if imu_in is None:
@@ -603,14 +711,26 @@ class SlamSystem:
                                      last_t)
         else:
             pr, pt = last_rot, last_t
+        icp_ok = None
+        if cfg.use_icp and self.last_frame is not None:
+            # the registration starts from the IMU or motion-model prediction
+            pr, pt, icp_ok = self._icp_predict(frame, pr, pt)
+        frame, extra_obs, of_innov = self._of_stage(frame, pr, pt)
         res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
-                                        pt, self.tcfg, self.last_levels)
+                                        pt, self.tcfg, self.last_levels,
+                                        extra_obs=extra_obs)
         if self.local_masks is None:
             self.local_masks = M.local_window(
                 self.ms, self.ref_kf, self.tcfg.local_window,
                 self.tcfg.lm_max_candidates)
         ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
                                       res.t, self.tcfg, self.local_masks)
+        if of_innov is not None:
+            # the OF health discount, also the VI acceptance's reference
+            res2 = res2._replace(n_inliers=res2.n_inliers - torch.sum(
+                (of_innov < 1.0) & (res2.obs_mp >= 0)))
+        if cfg.use_lidar:
+            res2 = self._lidar_refine(frame, ms2, res2, timestamp)
         rot_f, t_f, obs_f = res2.rot, res2.t, res2.obs_mp
         scal = [res.n_inliers, res2.n_inliers]
         if mode in ("kf", "prior"):
@@ -619,10 +739,14 @@ class SlamSystem:
                 self._vi_prior, self.tcfg, min_ok)
             bias = torch.cat([body.bg, body.ba])
             scal += [n_vi, accept, bias]
-        # the frame's one host read: inlier counts, VI verdict, the bias
+        if icp_ok is not None:
+            scal.append(icp_ok)
+        # the frame's one host read: inlier counts, VI verdict, the bias and
+        # the registration's verdict
         pkt = torch.cat([torch.as_tensor(x, device=self.device)
                          .reshape(-1).float() for x in scal]).cpu().numpy()
         n1, n2 = int(pkt[0]), int(pkt[1])
+        icp_held = icp_ok is not None and bool(pkt[-1])
         vi_ok = mode in ("kf", "prior") and bool(pkt[3])
         n_final = int(pkt[2]) if vi_ok else n2
         self.inlier_log.append((round(timestamp, 4), n1, n2))
@@ -645,13 +769,14 @@ class SlamSystem:
             self.frames_since_kf += 1
             self._kf_watchdog(timestamp)
             if not self._need_new_keyframe(n_final, timestamp):
-                return None
+                return frame, None
             # recorded against the reference KF before the KF's mapping
             twc = self._record_pose(timestamp)
             self._insert_keyframe(frame, timestamp,
                                   T.TrackResult(rot_f, t_f, obs_f, n2), n2)
-            return twc
-        if self.state == TrackingState.RECENTLY_LOST:
+            return frame, twc
+        if (self.state == TrackingState.RECENTLY_LOST
+                or self._carried_streak >= 30):
             rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
                                   self.ref_kf, self.last_levels, self.tcfg,
                                   min_ok, self._reloc_attempt)
@@ -662,7 +787,28 @@ class SlamSystem:
                     imu.body = imu.body_from_cam(rec.rot, rec.t,
                                                  v=pred_body.v)
                 self._vi_prior = None
-                return self._adopt_recovery(rec, timestamp)
+                return frame, self._adopt_recovery(rec, timestamp)
+        if icp_held:
+            # ICP-carried: the registered pose is the track and the motion
+            # model learns its delta; the body state stays dead-reckoned and
+            # the VI marginal is kept (the reference's fused step); the map
+            # and the visual bindings stay as they were
+            self.state = TrackingState.OK
+            self.lost_since = None
+            self._carried_streak += 1
+            self.n_icp_carried += 1
+            self.frames_since_kf += 1
+            self._set_pose(pr, pt, last_rot, last_t)
+            if mode in ("kf", "prior"):
+                imu.body = pred_body
+                self._vi_prior = marg
+            twc = self._record_pose(timestamp)
+            if timestamp - self._last_kf_time >= 0.5:
+                no_obs = torch.full_like(self.last_obs_mp, M.NO_MP)
+                self._insert_keyframe(frame, timestamp, T.TrackResult(
+                    pr, pt, no_obs, 0), 0, fused_kf=True)
+            self._kf_watchdog(timestamp)
+            return frame, twc
         # a lost frame: with the IMU it dead-reckons the prediction, without
         # it holds the last pose; the motion model and the bindings stay
         self.n_lost += 1
@@ -682,12 +828,12 @@ class SlamSystem:
             # gap with depth-created points; no visual bindings carry over
             no_obs = torch.full_like(self.last_obs_mp, M.NO_MP)
             self._insert_keyframe(frame, timestamp, T.TrackResult(
-                self.cur_rot, self.cur_t, no_obs, 0), 0)
+                self.cur_rot, self.cur_t, no_obs, 0), 0, fused_kf=True)
         if (self.lost_since is not None
                 and timestamp - self.lost_since > cfg.time_recently_lost):
             self.state = TrackingState.LOST
             self._reset_or_new_map()
-        return twc
+        return frame, twc
 
     def _fused_mode(self) -> bool:
         """The reference's default recovery (see the module docstring)."""
@@ -760,6 +906,22 @@ class SlamSystem:
         self.vel = (vr, vt)
         self.has_vel = True
 
+    def _of_stage(self, frame: FrameData, pred_rot, pred_t):
+        """The dual-stream optical flow from the predicted pose into the
+        frame's OF slots, with use_of and a previous frame: (the frame,
+        map-point ids bound to its slots, per-slot innovation) or (the
+        frame, None, None)."""
+        cfg = self.cfg
+        if not (cfg.use_of and self.last_frame is not None
+                and cfg.frame.n_of_slots > 0):
+            return frame, None, None
+        frame, extra_obs, n3d, n2d, of_innov = OF.of_dual_stream(
+            self.ms, self.last_frame, frame, self.last_obs_mp, pred_rot,
+            pred_t, self._gen, self.tcfg, OF.OFConfig(), cfg.frame.n_of_slots)
+        self._of_last = torch.stack([n3d, n2d])
+        self._of_total = self._of_total + self._of_last
+        return frame, extra_obs, of_innov
+
     def _icp_predict(self, frame: FrameData, pred_rot, pred_t):
         """GICP/NDT registration of the frame's depth cloud against the last
         frame's as the pose predictor (PredictStateICP). Accepted when it
@@ -803,11 +965,19 @@ class SlamSystem:
         return n_inliers < self.cfg.kf_tracked_ratio * ref
 
     def _insert_keyframe(self, frame: FrameData, timestamp: float,
-                         res: T.TrackResult, n_inliers: int):
-        if self.imu is not None and not self.imu.initialized:
-            return self._insert_keyframe_before_imu_init(frame, timestamp,
-                                                         res, n_inliers)
+                         res: T.TrackResult, n_inliers: int,
+                         fused_kf: bool = False):
+        """A KF through the mapping step (the reference's fused KF step),
+        or its staged KF step until the IMU is initialized and, with
+        use_lidar, for the KF of a tracked frame (`fused_kf` False)."""
+        if ((self.imu is not None and not self.imu.initialized)
+                or (self.cfg.use_lidar and not fused_kf)):
+            return self._insert_keyframe_staged(frame, timestamp, res,
+                                                n_inliers)
         slot = self._free_kf_slot()
+        if self.cfg.use_icp:
+            self._register_kf_icp(slot, frame, res.rot, res.t,
+                                  self._icp_prev(), lazy=True)
         vi = self._vi_window_for_kf(slot, timestamp) if self.imu else None
         with self.timers.time("New_KF"):
             # ends in the read of `culled`: includes the step's device work
@@ -841,12 +1011,8 @@ class SlamSystem:
             # the next frame tracks against the map-anchored KF state
             self._vi_prior = None
             self._rederive_body()
-        if self.cfg.use_icp:
-            # insertion order, a reused slot re-entering as the newest
-            self._kf_clouds.pop(slot, None)
-            self._kf_clouds[slot] = (frame.cloud, frame.cloud_valid)
-            while len(self._kf_clouds) > 40:
-                self._kf_clouds.pop(next(iter(self._kf_clouds)))
+        if self.cfg.use_lidar:
+            self._insert_kf_cloud(slot, frame, kf_rot, kf_t, lazy=True)
         if self.loop_closer is None:
             self._db_insert_kf(slot)
             return
@@ -887,14 +1053,15 @@ class SlamSystem:
 
     def _vi_window(self, slots, kw: int) -> LM.VIWindow:
         """A VI-BA window over `slots` (oldest first), end-padded to kw with
-        the out-of-range slot k_max."""
+        the out-of-range slot k_max; with use_icp its EdgeICP factors."""
         imu = self.imu
         slots_p = list(slots) + [self.cfg.k_max] * (kw - len(slots))
         return LM.VIWindow(
             slots=torch.tensor(slots_p, device=self.device),
             slot_valid=torch.arange(kw, device=self.device) < len(slots),
             segs=imu.build_segments(slots_p), r_cb=imu.r_cb, t_cb=imu.t_cb,
-            walk_info=imu.walk_info_dev)
+            walk_info=imu.walk_info_dev,
+            icp=self._icp_factors(slots_p, kw) if self.cfg.use_icp else None)
 
     def _viba_width(self, timestamp: float) -> int:
         """The VI-BA window of a KF: 8, or 16 for the staged refinements
@@ -925,16 +1092,17 @@ class SlamSystem:
                else torch.zeros(3, device=self.device))
         return vel, imu.bias_on_device(), self._vi_window(slots, kw)
 
-    def _insert_keyframe_before_imu_init(self, frame: FrameData,
-                                         timestamp: float,
-                                         res: T.TrackResult,
-                                         n_inliers: int):
-        """The reference's staged KF step, which it runs until the IMU is
-        initialized: KF insertion, the IMU initialization attempt (on
-        success VI-BA over the init window, kw 10), local BA (VI-BA once
-        initialized), duplicate fusion, point statistics, point and KF
-        culling, loop detection; tracking goes on from the KF's pose and its
-        live bindings, without the motion model."""
+    def _insert_keyframe_staged(self, frame: FrameData, timestamp: float,
+                                res: T.TrackResult, n_inliers: int):
+        """The reference's staged KF step (its KF step until the IMU is
+        initialized, and for every tracked frame's KF with use_lidar): KF
+        insertion, the host-gated inter-KF registration (use_icp), the IMU
+        initialization attempt (on success VI-BA over the init window, kw
+        10) or the VI state stamped on the KF, local BA (VI-BA once the IMU
+        is initialized), duplicate fusion, point statistics, point and KF
+        culling, the cloud into the local and global maps (use_lidar) at
+        the optimized KF pose, loop detection; tracking goes on from the
+        KF's pose and its live bindings, without the motion model."""
         imu = self.imu
         slot = self._free_kf_slot()
         with self.timers.time("New_KF"):
@@ -948,22 +1116,22 @@ class SlamSystem:
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
         self._vi_prior = None
-        imu.on_keyframe(slot, upto_ts=timestamp)
-        self.ms, did = imu.try_initialize(self.ms)
-        if did:
-            imu.init_time = self._t_rel(timestamp)
-            self._consume_imu_transform()
-            slots0 = imu.contiguous_window(10)
-            if len(slots0) >= 3:
-                self.ms, _ = LM.vi_ba_step(
-                    self.ms, self._vi_window(slots0, 10), self.mcfg)
-            self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
-            imu.body = imu.body_from_cam(self.cur_rot, self.cur_t,
-                                         v=self.ms.kf_vel[slot])
-            self.has_vel = False
+        if self.cfg.use_icp and bool(frame.cloud_valid.any()):
+            self._register_kf_icp(slot, frame, res.rot, res.t,
+                                  self._icp_prev(), lazy=False)
+        if imu is not None:
+            imu.on_keyframe(slot, upto_ts=timestamp)
+            if not imu.initialized:
+                self._try_imu_init(slot, timestamp)
+            elif imu.body is not None:
+                self.ms = self.ms._replace(
+                    kf_vel=M._set_row(self.ms.kf_vel, slot, imu.body.v),
+                    kf_bias=M._set_row(self.ms.kf_bias, slot,
+                                       imu.bias_on_device()))
         with self.timers.time("LBA"):
             slots = []
-            if imu.initialized and len(imu.kf_order) >= 4:
+            if (imu is not None and imu.initialized
+                    and len(imu.kf_order) >= 4):
                 kw = self._viba_width(timestamp)
                 slots = imu.contiguous_window(kw)
             if len(slots) >= 3:
@@ -974,7 +1142,7 @@ class SlamSystem:
         # BA moved the map: re-anchor on the optimized KF
         self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
         self.has_vel = False
-        if imu.initialized:
+        if imu is not None and imu.initialized:
             self._rederive_body()
         self.ms = LM.fuse_duplicates(self.ms, slot, self.mcfg)
         self.ms = LM.refresh_point_stats(self.ms, slot)
@@ -983,9 +1151,13 @@ class SlamSystem:
         culled_i = int(culled)
         if culled_i >= 0:
             self._on_kf_culled(self.ms, culled_i)
+        if self.cfg.use_lidar:
+            self._insert_kf_cloud(slot, frame, self.ms.kf_rot[slot],
+                                  self.ms.kf_t[slot], lazy=False)
         if self.loop_closer is not None:
             self.ms, found = self.loop_closer.on_keyframe(
-                self.ms, slot, inertial=imu.initialized)
+                self.ms, slot, kf_clouds=self._kf_clouds or None,
+                inertial=imu is not None and imu.initialized)
             if found:
                 self.cur_rot = self.ms.kf_rot[slot]
                 self.cur_t = self.ms.kf_t[slot]
@@ -999,6 +1171,130 @@ class SlamSystem:
             (obs >= 0) & self.ms.mp_valid[torch.clamp_min(obs, 0).long()],
             obs, M.NO_MP)
         self.local_masks = None
+
+    def _try_imu_init(self, slot: int, timestamp: float):
+        """The IMU initialization attempt at a new KF; on success VI-BA over
+        the init window (kw 10) and the tracked state re-anchored on the
+        rotated and scaled map."""
+        imu = self.imu
+        self.ms, did = imu.try_initialize(self.ms)
+        if not did:
+            return
+        imu.init_time = self._t_rel(timestamp)
+        self._consume_imu_transform()
+        slots0 = imu.contiguous_window(10)
+        if len(slots0) >= 3:
+            self.ms, _ = LM.vi_ba_step(
+                self.ms, self._vi_window(slots0, 10), self.mcfg)
+        self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
+        imu.body = imu.body_from_cam(self.cur_rot, self.cur_t,
+                                     v=self.ms.kf_vel[slot])
+        self.has_vel = False
+
+    def _icp_prev(self) -> Optional[int]:
+        """The KF the next inter-KF registration pairs with: the newest KF
+        of the IMU's order, else the last registered KF."""
+        if self.imu is not None and self.imu.kf_order:
+            return self.imu.kf_order[-1]
+        return self._last_kf_slot
+
+    def _register_kf_icp(self, slot: int, frame: FrameData, rot, t,
+                         prev: Optional[int], lazy: bool):
+        """Store the KF's cloud and register it by GICP against the cloud of
+        KF `prev`, from their current poses, as an EdgeICP measurement
+        T_cw[slot] T_cw[prev]^-1. The gate (converged, >= 400 inliers, error
+        < 0.01, translation within 0.1 m of the start) stays on the device
+        with `lazy`; otherwise it is read and a failed registration is
+        dropped. A recycled slot loses its old measurement first."""
+        self._kf_icp_rel.pop(slot, None)
+        # insertion order, a reused slot re-entering as the newest
+        self._kf_clouds.pop(slot, None)
+        self._kf_clouds[slot] = (frame.cloud, frame.cloud_valid)
+        while len(self._kf_clouds) > 40:
+            self._kf_clouds.pop(next(iter(self._kf_clouds)))
+        self._last_kf_slot = slot
+        if prev is None or prev not in self._kf_clouds or prev == slot:
+            return
+        pc_prev, pv_prev = self._kf_clouds[prev]
+        ri, ti = lie.se3_inverse(rot, t)
+        r0, t0 = lie.se3_compose(self.ms.kf_rot[prev], self.ms.kf_t[prev],
+                                 ri, ti)
+        reg = G.gicp_register(frame.cloud, frame.cloud_valid, pc_prev,
+                              pv_prev, init_rot=r0, init_t=t0)
+        gate = (reg.converged & (reg.n_inliers >= 400) & (reg.error < 0.01)
+                & (torch.linalg.norm(reg.t - t0) < 0.1))
+        if not lazy and not bool(gate):
+            return
+        rr, tr = lie.se3_inverse(reg.rot, reg.t)
+        self._kf_icp_rel[slot] = (rr, tr, prev, gate)
+
+    def _icp_factors(self, slots_p, kw: int) -> VIBA.RelPoseFactors:
+        """The EdgeICP factors of a padded VI window: the measurement of
+        each consecutive pair, information 1e2 where its gate passed, rows
+        of zero information elsewhere."""
+        dev = self.device
+        rots, ts, infos, n_meas = [], [], [], 0
+        for i in range(kw - 1):
+            rel = self._kf_icp_rel.get(slots_p[i + 1])
+            if rel is not None and rel[2] == slots_p[i]:
+                n_meas += 1
+                rots.append(rel[0])
+                ts.append(rel[1])
+                infos.append(torch.where(rel[3], 1e2, 0.0).to(dev))
+            else:
+                rots.append(torch.eye(3, device=dev))
+                ts.append(torch.zeros(3, device=dev))
+                infos.append(torch.zeros((), device=dev))
+        icp = VIBA.RelPoseFactors(rot=torch.stack(rots), t=torch.stack(ts),
+                                  info=torch.stack(infos))
+        self._edge_icp_rows = self._edge_icp_rows + torch.stack([
+            torch.tensor(n_meas, device=dev), (icp.info > 0).sum()])
+        return icp
+
+    def _insert_kf_cloud(self, slot: int, frame: FrameData, kf_rot, kf_t,
+                         lazy: bool):
+        """The KF's cloud into the sliding local map (KF slots below
+        slot - window_kfs leave it) and into the global map."""
+        oldest = max(slot - self._lidar_cfg.window_kfs, 0)
+        self.lidar_map = LD.insert_kf_cloud(
+            self.lidar_map, frame.cloud, frame.cloud_valid, kf_rot, kf_t,
+            slot, oldest, self._lidar_cfg)
+        add = self.global_map.add_lazy if lazy else self.global_map.add
+        add(frame.cloud, frame.cloud_valid, kf_rot, kf_t)
+
+    def _lidar_refine(self, frame: FrameData, ms: M.MapState,
+                      res: T.TrackResult, timestamp: float) -> T.TrackResult:
+        """Pose GN over reprojection and the point-to-plane factors of the
+        frame's cloud against the local map, 2 rounds x 5 iterations; the
+        bindings are cut to the inliers."""
+        pl = LD.make_plane_obs(self.lidar_map, frame.cloud, frame.cloud_valid,
+                               res.rot, res.t, self._lidar_cfg)
+        self._plane_log.append((round(timestamp, 4), pl.valid.sum()))
+        if len(self._plane_log) > 4096:
+            del self._plane_log[:2048]
+        return T.TrackResult(*T.pose_opt_from_obs(
+            ms, frame, res.obs_mp, res.rot, res.t, self.tcfg, plane_obs=pl,
+            rounds=2, iters_per_round=5))
+
+    def _odom_predict(self, pr, pt, timestamp: float):
+        """PredictStateOdom: the predicted rotation, at the last position
+        moved by the mean queued camera-frame (rotated to the world) and
+        world-frame velocities times the frame gap; empties the queue."""
+        dt = max(timestamp - self.last_time, 0.0)
+        cam_v = [v for f, v in self._odom_queue if f == "cam"]
+        wld_v = [v for f, v in self._odom_queue if f == "world"]
+        self._odom_queue = []
+        self.n_odom_frames += 1
+        rwc, twc = lie.se3_inverse(self.cur_rot, self.cur_t)
+        dpos = torch.zeros(3, device=self.device)
+        if cam_v:
+            dpos = dpos + rwc @ (torch.as_tensor(
+                np.mean(cam_v, axis=0), device=self.device) * dt)
+        if wld_v:
+            dpos = dpos + torch.as_tensor(
+                np.mean(wld_v, axis=0), device=self.device) * dt
+        r_wc_pred, _ = lie.se3_inverse(pr, pt)
+        return lie.se3_inverse(r_wc_pred, twc + dpos)
 
     def _consume_imu_transform(self):
         """Fold the map transform of the last IMU initialization into the

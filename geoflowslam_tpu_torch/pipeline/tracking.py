@@ -96,9 +96,10 @@ def stereo_initialization(ms: M.MapState, frame: FrameData, time: float,
 
 
 def pose_opt_from_obs(ms: M.MapState, frame: FrameData, obs_mp, rot0, t0,
-                      cfg: TrackConfig):
-    """Pose-only GN over the frame's bound map points; drops outliers from
-    the binding. Returns (rot, t, obs_mp, n_inliers)."""
+                      cfg: TrackConfig, **opt):
+    """Pose-only GN over the frame's bound map points (`opt`: plane_obs,
+    rounds, iters_per_round of pose_opt.pose_optimization); drops outliers
+    from the binding. Returns (rot, t, obs_mp, n_inliers)."""
     feat = frame.feat
     mp_idx = torch.clamp_min(obs_mp, 0).long()
     valid = (obs_mp >= 0) & ms.mp_valid[mp_idx] & feat.valid
@@ -107,7 +108,7 @@ def pose_opt_from_obs(ms: M.MapState, frame: FrameData, obs_mp, rot0, t0,
         is_stereo=valid & (frame.u_right > 0),
         inv_sigma2=inv_sigma2(feat.level, cfg.scale_factor), valid=valid)
     rot, t, inl, n_inl = pose_opt.pose_optimization(
-        rot0, t0, obs, cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.bf)
+        rot0, t0, obs, cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.bf, **opt)
     return rot, t, torch.where(inl, obs_mp, M.NO_MP), n_inl
 
 

@@ -11,14 +11,17 @@ IMU and bias random-walk factors:
 * the IMU factors' Jacobians are the closed forms of EdgeInertial
   (solvers/inertial.py), batched over the K-1 segments; the camera-pose
   Jacobians map to the body tangent through one constant 6x6 matrix.
+With `icp` (RelPoseFactors, the inter-KF GICP measurements of use_icp)
+each segment also carries an EdgeICP factor, e = log(T_meas^-1 T2 T1^-1)
+in camera frames, weighted by info x I6 (a row with zero info is absent);
+its Jacobians are the closed forms of `rel_pose_terms` (the SE(3) inverse
+right Jacobian), mapped to the body tangent like the reprojection terms.
 Steps are clamped per block (a trust region: near-rigid IMU information
-overshoots from a far linearization point). The inter-KF EdgeICP factors of
-the reference feed this solver only with use_icp, which the port's IMU
-path does not run yet.
+overshoots from a far linearization point).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +50,14 @@ class ImuSegments(NamedTuple):
     valid: torch.Tensor      # [S] bool
 
 
+class RelPoseFactors(NamedTuple):
+    """EdgeICP relative-pose measurements between consecutive window KFs,
+    T_meas = T_cw[i+1] T_cw[i]^-1 (camera frames)."""
+    rot: torch.Tensor    # [S, 3, 3]
+    t: torch.Tensor      # [S, 3]
+    info: torch.Tensor   # [S] information weight (0: no factor)
+
+
 class VIBAProblem(NamedTuple):
     vis: BAProblem           # poses Tcw + landmark/observation grid
     kf_vel: torch.Tensor     # [K, 3]
@@ -55,6 +66,21 @@ class VIBAProblem(NamedTuple):
     r_cb: torch.Tensor       # [3, 3] cam-from-body rotation
     t_cb: torch.Tensor       # [3]
     walk_info: torch.Tensor  # [6, 6] bias random-walk information
+    icp: Optional[RelPoseFactors] = None   # EdgeICP factors
+
+
+def rel_pose_terms(r1, t1, r2, t2, m_rot, m_t):
+    """EdgeICP residual e = log(T_meas^-1 T2 T1^-1) [S, 6] and its Jacobians
+    [S, 6, 6] in the left tangents [rho, phi] of the two camera poses
+    (T' = exp(xi) T): -Jr^-1(e) for T1, and Jr^-1(-e) Ad(T_meas^-1) for T2
+    (a left step of T2 is a left step Ad(T_meas^-1) xi of the error)."""
+    ri, ti = lie.se3_inverse(r1, t1)
+    rr, tr = lie.se3_compose(r2, t2, ri, ti)
+    mi, mti = lie.se3_inverse(m_rot, m_t)
+    e = lie.se3_log(*lie.se3_compose(mi, mti, rr, tr))
+    j1 = -lie.se3_right_jacobian_inv(e)
+    j2 = lie.se3_right_jacobian_inv(-e) @ lie.se3_adjoint(mi, mti)
+    return e, j1, j2
 
 
 def _states(rot_cw, t_cw, vel, bias, r_cb, t_cb):
@@ -147,6 +173,19 @@ def _gn_step(prob: VIBAProblem, vis: BAProblem, vel, bias, active, ad, fx,
     h12[:, 9:, 9:] -= winfo
     g1[:, 9:] += wbw
     g2[:, 9:] -= wbw
+    if prob.icp is not None:
+        # EdgeICP on the pose rows [dphi, dp] of the body tangent
+        e_c, j1c, j2c = rel_pose_terms(vis.kf_rot[:-1], vis.kf_t[:-1],
+                                       vis.kf_rot[1:], vis.kf_t[1:],
+                                       prob.icp.rot, prob.icp.t)
+        j1c, j2c = j1c @ ad, j2c @ ad
+        wi = (prob.icp.info * prob.segs.valid.to(dtp))[:, None, None]
+        h11[:, :6, :6] += wi * (j1c.transpose(1, 2) @ j1c)
+        h22[:, :6, :6] += wi * (j2c.transpose(1, 2) @ j2c)
+        h12[:, :6, :6] += wi * (j1c.transpose(1, 2) @ j2c)
+        we = wi * e_c[..., None]
+        g1[:, :6] -= (j1c.transpose(1, 2) @ we)[..., 0]
+        g2[:, :6] -= (j2c.transpose(1, 2) @ we)[..., 0]
     ii = torch.arange(k - 1, device=dev)
     s[ii, :, ii, :] = s[ii, :, ii, :] + h11
     s[ii + 1, :, ii + 1, :] = s[ii + 1, :, ii + 1, :] + h22

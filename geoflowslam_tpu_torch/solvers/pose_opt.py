@@ -1,16 +1,22 @@
 """Pose-only optimization: Gauss-Newton with IRLS Huber weights (port of
-geoflowslam_tpu/solvers/pose_opt.py without the prior and plane terms).
+geoflowslam_tpu/solvers/pose_opt.py with its point-to-plane term).
 
 Optimizer::PoseOptimization semantics: 4 rounds x 10 GN iterations with
 chi-square re-gating between rounds (chi2 mono 5.991, stereo 7.815; outliers
 may re-enter), the Huber kernel in all but the last round, left-
 multiplicative se3 updates on Tcw. The 6x6 solve uses solve_ex so that a
-singular system costs no host sync; a non-finite step is dropped.
+singular system costs no host sync; a non-finite step is dropped. With
+`plane_obs` every iteration adds the point-to-plane factors of the lidar
+stage (EdgeLidarPoint2Plane, Huber 0.1 m).
+
+The reference's `PosePrior` (a quadratic pose prior fused in an extra GN
+pass) is not ported: no caller on its paths passes one; its staged ICP
+predictor builds a prior only to flag an ICP-carried frame.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +36,30 @@ class PoseObs(NamedTuple):
     is_stereo: torch.Tensor   # [N] bool
     inv_sigma2: torch.Tensor  # [N] information weight (per octave)
     valid: torch.Tensor       # [N] bool
+
+
+class PlaneObs(NamedTuple):
+    """Point-to-plane observations: residual n . (T_wc p_c) + d."""
+    pts_c: torch.Tensor    # [L, 3] camera-frame points
+    normal: torch.Tensor   # [L, 3] world plane normals
+    d: torch.Tensor        # [L] plane offsets
+    valid: torch.Tensor    # [L] bool
+
+
+def plane_terms(rot, t, pl: PlaneObs, huber: float = 0.1):
+    """(H [6, 6], g [6], r [L]) of the point-to-plane factors under IRLS
+    Huber weights; p_w = R_cw^T (p_c - t_cw), and the left update on Tcw
+    gives d p_w / d[rho, phi] = R_wc [-I | hat(p_c)]."""
+    pw = (pl.pts_c - t) @ rot
+    r = torch.sum(pl.normal * pw, dim=1) + pl.d
+    n_c = pl.normal @ rot.T
+    jac = torch.cat([-n_c, torch.linalg.cross(n_c, pl.pts_c)], dim=1)
+    w = torch.where(torch.abs(r) <= huber, 1.0,
+                    huber / torch.clamp_min(torch.abs(r), 1e-9))
+    w = w * pl.valid.to(r.dtype)
+    h = torch.einsum("l,li,lj->ij", w, jac, jac)
+    g = -torch.einsum("l,li,l->i", w, jac, r)
+    return h, g, r
 
 
 def reproj_residuals(rot, t, obs: PoseObs, fx, fy, cx, cy, bf):
@@ -69,9 +99,11 @@ def huber_w(chi2, delta):
 
 
 def pose_optimization(rot0, t0, obs: PoseObs, fx, fy, cx, cy, bf=0.0,
+                      plane_obs: Optional[PlaneObs] = None,
                       rounds: int = 4, iters_per_round: int = 10,
                       min_obs_for_update: int = 3):
-    """Pose-only GN. Returns (rot, t, inlier mask [N], n_inliers [] int)."""
+    """Pose-only GN, with the point-to-plane factors of `plane_obs` in every
+    iteration. Returns (rot, t, inlier mask [N], n_inliers [] int)."""
     inlier = obs.valid
     row_mask = torch.stack([torch.ones_like(obs.inv_sigma2),
                             torch.ones_like(obs.inv_sigma2),
@@ -91,6 +123,9 @@ def pose_optimization(rot0, t0, obs: PoseObs, fx, fy, cx, cy, bf=0.0,
             wr = w[:, None] * row_mask
             h = torch.einsum("nri,nr,nrj->ij", jac, wr, jac)
             g = -torch.einsum("nri,nr->i", jac, wr * r)
+            if plane_obs is not None:
+                hp, gp, _ = plane_terms(rot, t, plane_obs)
+                h, g = h + hp, g + gp
             h = h + 1e-6 * eye6
             dx, _ = torch.linalg.solve_ex(h, g)
             ok = ((act.sum() >= min_obs_for_update)

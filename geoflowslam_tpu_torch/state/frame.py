@@ -3,7 +3,8 @@ the RGB-D branch of geoflowslam_tpu/state/frame.py::build_frame, with the
 raw feed and the packed m12 feed, io/feed_codec.py).
 
 CLAHE, ORB extraction, depth association (virtual right-camera u from bf),
-the voxel-downsampled depth cloud and the LK pyramid, as one FrameData of
+the voxel-downsampled depth cloud (with `lidar_features`, of the edge/surf
+feature points only) and the LK pyramid, as one FrameData of
 fixed shapes on the input's device. With `n_of_slots` > 0 the feature set
 ends in that many empty slots for the optical-flow stage to fill
 (Frame::AddPts analogue), and the metric depth image is kept so that the
@@ -39,8 +40,6 @@ def check_supported(cfg: FrameConfig) -> None:
     unsupported = []
     if cfg.camera_model != "pinhole" or cfg.dist_params:
         unsupported.append("distortion / non-pinhole camera")
-    if cfg.lidar_features:
-        unsupported.append("lidar_features")
     if cfg.feed_codec not in ("raw", "m12"):
         unsupported.append(f"feed_codec={cfg.feed_codec!r}")
     if unsupported:
@@ -69,9 +68,14 @@ def build_frame(gray: torch.Tensor, depth: Optional[torch.Tensor],
     d = torch.where((d > 0) & (d < cfg.max_depth) & feat.valid, d, -1.0)
     ur = torch.where(d > 0, feat.uv[:, 0] - cfg.bf / torch.clamp_min(d, 1e-6),
                      -1.0)
-    raw_pts, raw_mask = pc.depth_to_cloud(
-        depth * cfg.depth_map_factor, fx, fy, cx, cy,
-        stride=cfg.cloud_stride, max_depth=cfg.max_depth)
+    if cfg.lidar_features:
+        raw_pts, raw_mask, _ = pc.lidar_feature_cloud(
+            depth * cfg.depth_map_factor, fx, fy, cx, cy,
+            stride=cfg.cloud_stride, max_depth=cfg.max_depth)
+    else:
+        raw_pts, raw_mask = pc.depth_to_cloud(
+            depth * cfg.depth_map_factor, fx, fy, cx, cy,
+            stride=cfg.cloud_stride, max_depth=cfg.max_depth)
     cloud, cloud_valid = pc.voxel_downsample(
         raw_pts, raw_mask, cfg.cloud_voxel, cfg.cloud_max_pts)
     depth_img = None

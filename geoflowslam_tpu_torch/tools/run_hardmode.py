@@ -10,7 +10,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 geoflowslam_tpu_torch/tools/run_hardmode.py --mode rgbd \
         [--frames 2000] [--out results_hard_torch/rgbd] [--loop] \
-        [--of] [--icp] [--reference results_hard/rgbd]
+        [--of] [--icp] [--lidar] [--reference results_hard/rgbd]
 
 The sequence is rendered on the device in batches, packed there
 (io/feed_codec.pack_m12_torch) and kept in host memory with the IMU
@@ -24,7 +24,8 @@ track call is timed, with a device sync after each frame. Writes to --out:
                       relocalized ones), ms a frame; with the IMU also
                       imu_modes (frames per imu_mode), vi_accepted,
                       imu_init_time_s (since the first frame),
-                      viba1_done and viba2_done;
+                      viba1_done and viba2_done; with --lidar
+                      global_map_points;
   frames_diag.jsonl   [frame, seconds, state, n_lost] per frame;
   inliers_diag.jsonl  [t, motion-model inliers, local-map inliers] per frame;
   CameraTrajectory.txt  the exported trajectory, TUM format (t tx ty tz qx
@@ -71,7 +72,8 @@ MIN_OK = SystemConfig().min_inliers_ok
 
 
 def make_config(width: int, height: int, features: int, loop: bool,
-                of: bool, icp: bool, imu: bool = False) -> SystemConfig:
+                of: bool, icp: bool, imu: bool = False,
+                lidar: bool = False) -> SystemConfig:
     """The JAX hard-mode script's RGB-D (with `imu`: RGB-D-inertial)
     configuration."""
     fx = width * 0.625
@@ -84,7 +86,8 @@ def make_config(width: int, height: int, features: int, loop: bool,
                         bf=fx * 0.1, frame=fc,
                         loop=LoopConfig() if loop else None,
                         imu=ImuConfig() if imu else None,
-                        use_of=of, use_icp=icp, k_max=128, m_max=32768)
+                        use_of=of, use_icp=icp, use_lidar=lidar, k_max=128,
+                        m_max=32768)
 
 
 def ground_truth(seq: HardSyntheticSequence, ts: np.ndarray):
@@ -193,7 +196,7 @@ def run(args) -> dict:
     w, h = args.width, args.height
     inertial = args.mode == "rgbd_inertial"
     cfg = make_config(w, h, args.features, args.loop, args.of, args.icp,
-                      imu=inertial)
+                      imu=inertial, lidar=args.lidar)
     cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=w,
                  height=h)
     seq = HardSyntheticSequence(SyntheticWorld(cam, device=dev),
@@ -257,7 +260,7 @@ def run(args) -> dict:
     lc = slam.loop_closer
     steady = np.asarray(ms_frame[1:])
     out = {"mode": args.mode, "frames": args.frames, "of": args.of,
-           "icp": args.icp, "loop": args.loop,
+           "icp": args.icp, "lidar": args.lidar, "loop": args.loop,
            "ate_rmse_m": m["ate_rmse"], "rpe_trans_m": r["rpe_trans"],
            "rpe_rot_deg": r["rpe_rot_deg"], "map": st,
            "kf_cost_early_ms": early, "kf_cost_late_ms": late,
@@ -273,6 +276,8 @@ def run(args) -> dict:
            "device": (torch.cuda.get_device_name(dev) if cuda
                       else "cpu"),
            "card": _card() if cuda else "cpu"}
+    if args.lidar:
+        out.update(global_map_points=len(slam.global_map.points()))
     if inertial:
         out.update(imu_modes=slam.imu_modes, vi_accepted=slam.n_vi_accepted,
                    imu_init_time_s=slam.imu.init_time,
@@ -384,9 +389,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reference", default=None)
     ap.add_argument("--report-only", action="store_true")
     args = ap.parse_args(argv)
-    if args.mode == "mono" or args.lidar:
-        what = "--lidar" if args.lidar else f"--mode {args.mode}"
-        raise NotImplementedError(f"not ported yet: {what}")
+    if args.mode == "mono":
+        raise NotImplementedError(f"not ported yet: --mode {args.mode}")
     if not args.report_only:
         run(args)
     if args.reference:

@@ -12,6 +12,7 @@ import torch
 from geoflowslam_tpu.eval import ate as ate_jax
 from geoflowslam_tpu.ops.extractor import OrbConfig as JOrb
 from geoflowslam_tpu.pipeline.inertial import ImuConfig as JImu
+from geoflowslam_tpu.pipeline.lidar_mapping import LidarConfig as JLidar
 from geoflowslam_tpu.pipeline.local_mapping import MappingConfig as JMap
 from geoflowslam_tpu.pipeline.loop_closing import LoopConfig as JLoop
 from geoflowslam_tpu.pipeline.system import SystemConfig as JSys
@@ -24,7 +25,8 @@ from geoflowslam_tpu_torch.eval import ate as ate_torch
 torch.set_num_threads(2)
 
 PAIRS = [(C.OrbConfig, JOrb), (C.FrameConfig, JFrame), (C.TrackConfig, JTrack),
-         (C.MappingConfig, JMap), (C.LoopConfig, JLoop), (C.SystemConfig, JSys)]
+         (C.MappingConfig, JMap), (C.LoopConfig, JLoop),
+         (C.SystemConfig, JSys), (C.LidarConfig, JLidar)]
 PORT_DIR = Path(__file__).resolve().parents[1] / "geoflowslam_tpu_torch"
 
 

@@ -23,9 +23,10 @@ inputs:
   re-runs) on the initialized maps: the maps within 1e-4, the same
   outcomes;
 * apply_scaled_rotation on a random map within 1e-5;
-* check_config raises on imu with use_icp or use_of, SlamSystem raises on
-  imu without a vocabulary, and SlamSystem(cfg with imu, device="cuda")
-  raises without CUDA.
+* check_config accepts imu with use_icp, use_of or both and raises on imu
+  with local_ba_every_kf=False or another sensor, SlamSystem raises on imu
+  without a vocabulary, and SlamSystem(cfg with imu, device="cuda") raises
+  without CUDA.
 """
 import dataclasses
 
@@ -276,7 +277,10 @@ def test_apply_scaled_rotation():
 
 def test_imu_config_checks():
     base = C.SystemConfig(imu=C.ImuConfig())
-    for bad in (dict(use_icp=True), dict(use_of=True)):
+    for ok in (dict(use_icp=True), dict(use_of=True),
+               dict(use_icp=True, use_of=True)):
+        check_config(dataclasses.replace(base, **ok))
+    for bad in (dict(local_ba_every_kf=False), dict(sensor="mono")):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))
     check_config(base)
