@@ -57,13 +57,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      fast_scores_two on 8 levels, ops/klt.klt_track over 4 levels) at full
      width on the card, counted apart from the paths under
      `entry_point_launches` (their `launches` read 0: no path runs them);
-  7. rgbd: 150 frames at 30 fps of the synthetic room at 640x480, rendered
+  7. rgbd: 90 frames at 30 fps of the synthetic room at 640x480, rendered
      by the port, through SlamSystem.track_rgbd with the default
      SystemConfig (1000 features, 8 levels, k_max 256, m_max 65536): state
      OK, >= 3 keyframes, ATE < 5 cm and RPE < 3 cm against ground truth,
      finite poses, K2 launched by the path and the fused K1 exactly once
      per frame;
-  8. of_icp: the same with use_of, use_icp and n_of_slots = 256, 150
+  8. of_icp: the same with use_of, use_icp and n_of_slots = 256, 90
      frames at 10 fps, a fresh map: the same gates, optical-flow points
      appended, at least one accepted ICP prediction, K2 launched, the fused
      K1 exactly once per frame and the fused K3 once per frame after the
@@ -92,7 +92,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
  12. inertial: the RGB-D-inertial path at bench.py's configuration
      (inertial_config: the hard phase's widths with fx 400, k_max 256, m_max
      65536, ImuConfig(init_min_kfs=4, init_min_time=0.8), LoopConfig(), the
-     shipped vocabulary) over INERTIAL_FRAMES frames (14 s at 30 fps) of
+     shipped vocabulary) over INERTIAL_FRAMES frames (12 s at 30 fps) of
      the synthetic room with 200 Hz IMU samples through
      SlamSystem.track_rgbd_inertial on m12 buffers: OK with 1 map, the IMU
      initialized, VIBA1 and VIBA2 done, ATE over the second half < 5 cm,
@@ -112,7 +112,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      make_plane_obs ms, the frames that read odometry;
  14. inertial_geoflow: inertial_config() with use_icp, use_of and
      n_of_slots 256 over INERTIAL_GEOFLOW_FRAMES frames: the gates of 12
-     but VIBA2 (8 s reach VIBA1 only; host syncs over GEOFLOW_SYNC), ICP
+     but VIBA2 (7.5 s reach VIBA1 only; host syncs over GEOFLOW_SYNC), ICP
      accepted, OF points appended, >= 1 EdgeICP measurement in a VI-BA
      window (and how many passed their gate), K3 once per frame after the
      first; what 12 prints; then the EdgeICP factor with information on
@@ -120,10 +120,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      at information 1e2 and 1e5, vi_local_ba on the card against the same
      call on the CPU (KF positions within 1e-4 m, rotations within 1e-4
      rad, velocities and biases within 1e-4), rel_pose_terms within 1e-5,
-     and the factor moving the KFs at 1e5.
-Each path's launch counts are set to 0 just before it and read just after;
-every path launches the fused K1 once per frame and the per-level K1 and K3
-never. Every kernel has three times: `ms`, the CUDA-event median around its
+     and the factor moving the KFs at 1e5;
+ 15. stereo_inertial: examples/run_euroc.py's stereo_imu configuration
+     (752x480, fx 458.654, bf 458.654 x 0.11, 1000 features, 8 levels,
+     EuRoC's IMU noises, no vocabulary; without its radtan distortion) over
+     STEREO_FRAMES frames at 20 fps of a rectified pair through run_path
+     (track_stereo, then track_stereo_inertial with 200 Hz samples): the
+     gates of 7 with the ATE over the second half < 6 cm, 1 map, the IMU
+     initialized, VIBA1 done, |v| < 3 m/s, the fused K1 once per frame, K2
+     launched, K4 never; stereo_match on one frame against the rendered
+     depth (> 50% valid, median relative error < 5%) and against the CPU
+     (masks >= 99% equal, u_right within 1e-3 px); the fused K1 on that
+     frame's pyramid equal to plain; ms per imu_mode, VI-BA ms by width,
+     host syncs a frame;
+ 16. stereo_fisheye: the dual-KB8 rig of tests/test_stereo_fisheye.py at
+     512x512 (fx 190.44, baseline 0.101 m, lapping (0, 511), 1000 features,
+     8 levels) over FISHEYE_FRAMES frames at 20 fps through run_path
+     (track_stereo_fisheye): the gates of 7 with ATE < 5 cm at
+     with_scale=False, the fused K1 exactly twice a frame, K4 exactly once
+     a frame and one frame's K4 search equal to plain; the fused K1 on a
+     frame's pyramid equal to plain; K4's times at that frame's shape.
+Each phase prints its wall seconds. Each path's launch counts are set to 0
+just before it and read just after; every path launches the fused K1 once
+per frame (stereo_fisheye twice) and the per-level K1 and K3 never. Every kernel has three times: `ms`, the CUDA-event median around its
 Python launcher; `device_ms`, the kernel alone (its C entry launches it 200
 and 400 times back to back between one event pair each, and the difference
 over 200 is one launch; see device_ms); `plain_ms`; and `bound_ms`, the
@@ -132,7 +151,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the eight paths and nothing else) with `launch_floor_ms` beside it; the
+over the ten paths and nothing else) with `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -151,7 +170,8 @@ import torch.nn.functional as F
 
 from geoflowslam_tpu_torch import kernels
 from geoflowslam_tpu_torch.config import (FrameConfig, ImuConfig, LoopConfig,
-                                          OrbConfig, SystemConfig)
+                                          OrbConfig, StereoFisheyeConfig,
+                                          SystemConfig)
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe
 from geoflowslam_tpu_torch.io import feed_codec as FC
 from geoflowslam_tpu_torch.io.synthetic import (Camera, HardSyntheticSequence,
@@ -160,7 +180,9 @@ from geoflowslam_tpu_torch.io.synthetic import (Camera, HardSyntheticSequence,
                                                 smooth_trajectory)
 from geoflowslam_tpu_torch.ops import fast as FAST
 from geoflowslam_tpu_torch.ops import klt as KLT
+from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import matching as MA
+from geoflowslam_tpu_torch.ops import stereo as ST
 from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
@@ -191,20 +213,31 @@ KERNEL_INFO = {
         source="geoflowslam_tpu_torch/kernels/csrc/hamming_best2.cu",
         replaces="geoflowslam_tpu/ops/pallas_kernels.py:186"),
 }
-N_FRAMES = 150
+N_FRAMES = 90      # the rgbd and of_icp paths (150 before the stereo paths)
+G1_FRAMES = 150
 FPS = 30.0
 OF_FPS = 10.0
 G1_BLANK = (20, 21)   # g1 frames without texture or depth (odometry read)
 RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
 HARD_FRAMES = 600    # the hard path: 20 s, into the first texture-poor window
-INERTIAL_FRAMES = 420   # the inertial path: 14 s at 30 fps (IMU init ~1 s,
-                        # VIBA1 at +5 s, VIBA2 at +10 s)
+INERTIAL_FRAMES = 360   # the inertial path: 12 s at 30 fps (IMU init ~1 s,
+                        # VIBA1 at +5 s, VIBA2 at +10 s); 420 before the
+                        # stereo paths came
 SYNC_WINDOW = (300, 330)   # inertial frames whose host syncs are counted
-# the inertial path with GeoFlow's streams: 8 s at 30 fps, through VIBA1
+# the inertial path with GeoFlow's streams: 7.5 s at 30 fps, through VIBA1
 # (init ~1.1 s, VIBA1 at +5 s), its host syncs counted over GEOFLOW_SYNC;
-# 360 frames (VIBA2) took the whole script near the time limit
-INERTIAL_GEOFLOW_FRAMES = 240
-GEOFLOW_SYNC = (200, 230)
+# 360 frames (VIBA2) took the whole script near the time limit, 240 before
+# the stereo paths came
+INERTIAL_GEOFLOW_FRAMES = 225
+GEOFLOW_SYNC = (190, 220)
+# the stereo-inertial path (examples/run_euroc.py's stereo_imu configuration):
+# 8.5 s at 20 fps, through the init (1.5 s on an H100) and VIBA1 (the first
+# KF 5 s later); host syncs counted over STEREO_SYNC
+STEREO_FRAMES = 170
+STEREO_FPS = 20.0
+STEREO_SYNC = (150, 160)
+FISHEYE_FRAMES = 110   # the stereo-fisheye path: 5.5 s at 20 fps
+FISHEYE_FPS = 20.0
 LK_N = 1256          # n_features + n_of_slots of the OF/ICP path
 # K3 vs plain on the card. Samples, template and gradients are equal bit for
 # bit (same float32 operations); only the 441- or 961-term sums run in
@@ -769,54 +802,66 @@ def phase_entry_points(summary):
         summary[name]["entry_point_launches"] = launches[name]
 
 
-def run_path(tag, cfg, fps, summary, expect, before_frame=None):
-    """Drive SlamSystem over N_FRAMES frames of the port's synthetic room
-    and hold it to the accuracy gates; the kernels in `expect` must have been
-    launched by this path. `before_frame(slam, i, gray, depth)`, where
-    given, runs before frame i is tracked and returns the (gray, depth) to
-    track. Returns the system."""
+def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
+             n_frames=N_FRAMES, cam=None, ate_gate=0.05, tail=False,
+             with_scale=True):
+    """Drive SlamSystem over n_frames of the port's synthetic room (the
+    camera `cam`, by default cfg's pinhole) and hold it to the accuracy
+    gates: state OK, >= 3 KFs, finite poses, ATE < ate_gate (over the
+    second half with `tail`; with_scale as ate_rmse takes it) and RPE <
+    3 cm; the kernels in `expect` must have been launched by this path.
+    The frame source: `render(seq, i, t)` returns frame i's inputs, all
+    rendered before the first frame is tracked (default: the room's gray
+    and depth), and `track(slam, i, t, inputs)` tracks it (default:
+    track_rgbd; a hook may queue odometry, pass a second image or IMU
+    samples). Returns the system."""
     dev = torch.device("cuda")
-    cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
-                 width=cfg.frame.orb.width, height=cfg.frame.orb.height)
+    if cam is None:
+        cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
+                     width=cfg.frame.orb.width, height=cfg.frame.orb.height)
+    if render is None:
+        render = lambda seq, i, t: seq.frame(t)[:2]
+    if track is None:
+        track = lambda slam, i, t, inputs: slam.track_rgbd(*inputs, t)
     seq = SyntheticSequence(SyntheticWorld(cam, device=dev), fps=fps)
     t0 = time.perf_counter()
-    frames = []
-    for i in range(N_FRAMES):
-        gray, depth, (rot_cw, t_cw) = seq.frame(i / fps)
-        frames.append((gray, depth, rot_cw.cpu().numpy().astype(np.float64),
-                       t_cw.cpu().numpy().astype(np.float64)))
+    frames, gt = [], []
+    for i in range(n_frames):
+        frames.append(render(seq, i, i / fps))
+        rot_cw, t_cw = (x.cpu().numpy().astype(np.float64)
+                        for x in seq.pose_cw(i / fps))
+        twc = np.eye(4)
+        twc[:3, :3] = rot_cw.T
+        twc[:3, 3] = -rot_cw.T @ t_cw
+        gt.append((i / fps, twc))
     torch.cuda.synchronize()
-    print(f"[{tag}] rendered {N_FRAMES} frames {cam.width}x{cam.height} "
+    print(f"[{tag}] rendered {n_frames} frames {cam.width}x{cam.height} "
           f"at {fps:g} fps in {time.perf_counter() - t0:.2f} s")
 
     slam = SlamSystem(cfg, device=dev)
     kernels.reset_launch_counts()
-    gt, ms_per_frame = [], []
-    for i, (gray, depth, rot_cw, t_cw) in enumerate(frames):
-        t = i / fps
+    ms_per_frame = []
+    for i, inputs in enumerate(frames):
         t1 = time.perf_counter()
-        if before_frame is not None:
-            gray, depth = before_frame(slam, i, gray, depth)
-        slam.track_rgbd(gray, depth, t)
+        track(slam, i, i / fps, inputs)
         torch.cuda.synchronize()
         ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
-        twc = np.eye(4)
-        twc[:3, :3] = rot_cw.T
-        twc[:3, 3] = -rot_cw.T @ t_cw
-        gt.append((t, twc))
     launches = dict(kernels.launch_counts)
 
     stats = slam.map_stats()
     traj = slam.trajectory
     poses = np.stack([p for _, p in traj])
-    ate = ate_rmse(traj, gt)
+    half = n_frames // 2 if tail else 0
+    ate = ate_rmse([e for e in traj if e[0] >= gt[half][0]], gt[half:],
+                   with_scale=with_scale)
     rp = rpe(traj, gt)
     steady = np.asarray(ms_per_frame[1:])
     print(f"[{tag}] state {stats['state']}, {stats['n_kfs']} KFs, "
           f"{stats['n_mps']} map points, {len(traj)} poses, "
-          f"ATE {ate['ate_rmse'] * 100:.3f} cm, RPE {rp['rpe_trans'] * 100:.3f}"
+          f"ATE{' over the second half' if tail else ''} "
+          f"{ate['ate_rmse'] * 100:.3f} cm, RPE {rp['rpe_trans'] * 100:.3f}"
           f" cm / {rp['rpe_rot_deg']:.4f} deg")
-    print(f"[{tag}] ms/frame (frames 2..{N_FRAMES}): median "
+    print(f"[{tag}] ms/frame (frames 2..{n_frames}): median "
           f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
           f"first frame {ms_per_frame[0]:.1f} ms")
     if stats["state"] != "OK":
@@ -825,11 +870,11 @@ def run_path(tag, cfg, fps, summary, expect, before_frame=None):
         raise AssertionError(f"{tag} made only {stats['n_kfs']} keyframes")
     if not np.all(np.isfinite(poses)) or poses.shape[1:] != (4, 4):
         raise AssertionError("non-finite or misshapen poses")
-    if not ate["ate_rmse"] < 0.05:
-        raise AssertionError(f"ATE {ate['ate_rmse']} m >= 5 cm")
+    if not ate["ate_rmse"] < ate_gate:
+        raise AssertionError(f"ATE {ate['ate_rmse']} m >= {ate_gate} m")
     if not rp["rpe_trans"] < 0.03:
         raise AssertionError(f"RPE {rp['rpe_trans']} m >= 3 cm")
-    _count(summary, tag, launches, N_FRAMES, expect)
+    _count(summary, tag, launches, n_frames, expect)
     return slam
 
 
@@ -880,15 +925,16 @@ def phase_g1(summary):
         frame=dataclasses.replace(base.frame, n_of_slots=256))
     n_kfs, states = [], {}
 
-    def before_frame(slam, i, gray, depth):
+    def track(slam, i, t, inputs):
+        gray, depth = inputs
         if i > 0:
             n_kfs.append(int(slam.ms.kf_valid.sum()))
             states[i - 1] = slam.state.name
-        slam.set_odom(smooth_trajectory(torch.tensor(i / OF_FPS))[2].numpy(),
+        slam.set_odom(smooth_trajectory(torch.tensor(t))[2].numpy(),
                       odom_frame=False)
         if i in G1_BLANK:
-            return torch.full_like(gray, 100.0), torch.zeros_like(depth)
-        return gray, depth
+            gray, depth = torch.full_like(gray, 100.0), torch.zeros_like(depth)
+        slam.track_rgbd(gray, depth, t)
     plane_ms = []
     make_plane_obs = LD.make_plane_obs
 
@@ -902,16 +948,17 @@ def phase_g1(summary):
     try:
         slam = run_path("g1", cfg, OF_FPS, summary,
                         {"gated_hamming_search": None,
-                         "lk_pyramid": N_FRAMES - 1}, before_frame)
+                         "lk_pyramid": G1_FRAMES - 1}, track=track,
+                        n_frames=G1_FRAMES)
     finally:
         LD.make_plane_obs = make_plane_obs
     n_kfs.append(int(slam.ms.kf_valid.sum()))
     stats = slam.map_stats()
     n3d, n2d = slam.of_appended
-    second = next((i for i, k in enumerate(n_kfs) if k >= 2), N_FRAMES)
+    second = next((i for i, k in enumerate(n_kfs) if k >= 2), G1_FRAMES)
     counts = dict(slam.plane_factor_counts)
     after = [counts.get(round(i / OF_FPS, 4), 0)
-             for i in range(second + 1, N_FRAMES)]
+             for i in range(second + 1, G1_FRAMES)]
     share = float(np.mean([c > 0 for c in after])) if after else 0.0
     n_global = len(slam.global_map.points())
     lost = [states.get(i) for i in G1_BLANK]
@@ -936,6 +983,277 @@ def phase_g1(summary):
     if not share >= 0.5 or n_global <= 500:
         raise AssertionError(f"plane factors on {share} of the frames, "
                              f"global map {n_global} points")
+
+
+def stereo_inertial_config() -> SystemConfig:
+    """examples/run_euroc.py's configuration for --mode stereo_imu
+    (examples/run_euroc.py:56-66): EuRoC cam0, 752x480, fx 458.654 / fy
+    457.296, bf = 458.654 x 0.11, 1000 features, 8 levels, ImuConfig with
+    EuRoC's noises and the default initialization; cut: dist_params=()
+    (the room's renderer has no radtan model)."""
+    orb = OrbConfig(n_features=1000, n_levels=8, height=480, width=752)
+    bf = 458.654 * 0.11
+    return SystemConfig(
+        fx=458.654, fy=457.296, cx=367.215, cy=248.375, bf=bf,
+        frame=FrameConfig(orb=orb, bf=bf),
+        imu=ImuConfig(freq=200.0, noise_gyro=1.7e-4, noise_acc=2e-3,
+                      walk_gyro=1.9e-5, walk_acc=3e-3))
+
+
+def _check_stereo_depth(seq, cfg, t):
+    """One frame of the rectified rig at time t: stereo_match's depth on the
+    left keypoints against the rendered depth (> 50% valid, median relative
+    error < 5%), and the card's matcher against the same call on the CPU
+    (valid masks >= 99% equal, u_right within 1e-3 px where both are
+    valid); returns its ms on the card."""
+    rot_cw, t_cw = seq.pose_cw(t)
+    gl, depth = seq.world.render(rot_cw, t_cw)
+    gr, _ = seq.world.render(rot_cw, t_cw + _baseline(cfg))
+    frame = build_frame(gl, None, cfg.frame, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+    uv, valid = frame.feat.uv, frame.feat.valid
+    ur, d = ST.stereo_match(gl, gr, uv, valid, cfg.bf)
+    ur_c, d_c = ST.stereo_match(gl.cpu(), gr.cpu(), uv.cpu(), valid.cpu(),
+                                cfg.bf)
+    ok, ok_c = (d > 0).cpu(), d_c > 0
+    xi = torch.round(uv[:, 0]).long().clamp(0, gl.shape[1] - 1)
+    yi = torch.round(uv[:, 1]).long().clamp(0, gl.shape[0] - 1)
+    gt = depth[yi, xi]
+    share = float(ok[valid.cpu()].float().mean())
+    rel = float(((d - gt).abs() / gt)[d > 0].median())
+    agree = float((ok == ok_c).float().mean())
+    both = ok & ok_c
+    du = float((ur.cpu() - ur_c)[both].abs().max())
+    ms = cuda_ms(lambda: ST.stereo_match(gl, gr, uv, valid, cfg.bf))
+    print(f"[stereo_inertial] stereo_match at t = {t} s: depth on "
+          f"{share * 100:.1f}% of {int(valid.sum())} keypoints, median "
+          f"relative error {rel * 100:.3f}% against the rendered depth; card "
+          f"against CPU: valid masks equal on {agree * 100:.2f}%, max "
+          f"|u_right| difference {du:.2e} px; {ms:.3f} ms on the card")
+    if not (share > 0.5 and rel < 0.05):
+        raise AssertionError(f"stereo depth on {share} of the keypoints, "
+                             f"median relative error {rel}")
+    if not (agree >= 0.99 and du <= 1e-3):
+        raise AssertionError(f"stereo_match on the card differs from the "
+                             f"CPU: masks {agree}, u_right {du} px")
+    return ms
+
+
+def _baseline(cfg):
+    """The rectified right camera's offset in Tcw: (-bf / fx, 0, 0)."""
+    return torch.tensor([-cfg.bf / cfg.fx, 0.0, 0.0], device="cuda")
+
+
+def _check_fused_k1(seq, t, tag):
+    """The fused K1 against its plain version on the pyramid of one frame
+    of the path, every level's maps torch.equal; returns (device ms, bound
+    ms, its limit)."""
+    gray = torch.nan_to_num(seq.frame(t)[0], nan=0.0)
+    levels = build_pyramid(gray, 8, 1.2)
+    got = kernels.fast_nms_levels(levels, 7.0, 20.0, 16)
+    want = FAST.fast_nms_levels_plain(levels, 7.0, 20.0, 16)
+    torch.cuda.synchronize()
+    for lvl, (g, p) in enumerate(zip(got, want)):
+        if not all(torch.equal(a, b) for a, b in zip(g, p)):
+            raise AssertionError(f"fast_nms_levels differs from plain on a "
+                                 f"{tag} frame, level {lvl}")
+    h, w = gray.shape
+    px = sum(x.numel() for x in levels)
+    px_fast = sum((a - 30) * (b - 30) for a, b in (x.shape for x in levels))
+    px_nms = sum((a - 32) * (b - 32) for a, b in (x.shape for x in levels))
+    dms = device_ms(lambda reps=1: kernels.fast_nms_levels(
+        levels, 7.0, 20.0, 16, reps=reps))
+    bms, by = bound_ms(12 * px, FAST_OPS_PX * px_fast + NMS_OPS_PX * px_nms)
+    print(f"[{tag}] fast_nms_levels on a {w}x{h} frame's 8 levels: equal to "
+          f"plain; {dms:.4f} ms on the device, bound {bms:.5f} ms ({by})")
+    return dms, bms, by
+
+
+def phase_stereo_inertial(summary, n_frames: int = STEREO_FRAMES):
+    """Stereo-inertial at examples/run_euroc.py's stereo_imu configuration
+    (stereo_inertial_config) through run_path: n_frames of the room at 20
+    fps, the right image of a rectified pair 0.11 m to the right, 200 Hz
+    IMU samples (10 a frame), no vocabulary; the first frame through
+    track_stereo, then track_stereo_inertial. Gates: those of run_path
+    with the ATE over the second half < 6 cm, 1 map, the IMU initialized
+    and VIBA1 done, |v| finite and < 3 m/s, the fused K1 once per frame, K2
+    launched, K4 never; then _check_stereo_depth on one frame and the fused
+    K1 on one frame's pyramid against plain. Prints ms a frame per
+    imu_mode (median, p90), VI-BA ms by window width and the host syncs a
+    frame over STEREO_SYNC (CUDA sync debugging)."""
+    cfg = stereo_inertial_config()
+    base = _baseline(cfg)
+    seqs, by_mode, viba, n_syncs = [], {}, [], [0]
+
+    def render(seq, i, t):
+        if not seqs:
+            seqs.append(seq)
+        rot_cw, t_cw = seq.pose_cw(t)
+        imu = None if i == 0 else tuple(
+            x.cpu().numpy() for x in seq.imu_between(
+                (i - 1) / STEREO_FPS, t, cfg.imu.max_samples_per_frame))
+        return (seq.world.render(rot_cw, t_cw)[0],
+                seq.world.render(rot_cw, t_cw + base)[0], imu)
+
+    def track(slam, i, t, inputs):
+        gl, gr, imu = inputs
+        before = dict(slam.imu_modes)
+        t1 = time.perf_counter()
+        if i == 0:
+            slam.track_stereo(gl, gr, t)
+        elif STEREO_SYNC[0] <= i < STEREO_SYNC[1]:
+            n_syncs[0] += _count_syncs(
+                lambda: slam.track_stereo_inertial(gl, gr, *imu, t))[1]
+            return
+        else:
+            slam.track_stereo_inertial(gl, gr, *imu, t)
+        torch.cuda.synchronize()
+        mode = next((m for m, n in slam.imu_modes.items()
+                     if n != before.get(m, 0)), "init")
+        by_mode.setdefault(mode, []).append(
+            (time.perf_counter() - t1) * 1000.0)
+
+    vi_ba_step = LM.vi_ba_step
+
+    def timed_vi_ba(ms, win, mcfg):
+        t1 = time.perf_counter()
+        out = vi_ba_step(ms, win, mcfg)
+        torch.cuda.synchronize()
+        viba.append((win.slots.shape[0], (time.perf_counter() - t1) * 1e3))
+        return out
+    LM.vi_ba_step = timed_vi_ba
+    try:
+        slam = run_path("stereo_inertial", cfg, STEREO_FPS, summary,
+                        {"gated_hamming_search": None}, render, track,
+                        n_frames, ate_gate=0.06, tail=True)
+    finally:
+        LM.vi_ba_step = vi_ba_step
+    imu_t = slam.imu
+    v = imu_t.body.v.cpu().numpy()
+    stats = slam.map_stats()
+    n_vi = sum(n for m, n in slam.imu_modes.items() if m in ("kf", "prior"))
+    print(f"[stereo_inertial] {stats}; IMU initialized {imu_t.initialized} "
+          f"at t = {imu_t.init_time} s, VIBA1 {imu_t.viba1_done}, VIBA2 "
+          f"{imu_t.viba2_done}; |v| {np.linalg.norm(v):.3f} m/s; n_lost "
+          f"{slam.n_lost}; frames per imu_mode {slam.imu_modes}; VI accepted "
+          f"on {slam.n_vi_accepted} of {n_vi} VI frames")
+    for mode, v_ms in sorted(by_mode.items()):
+        print(f"[stereo_inertial] ms/frame in mode {mode}: median "
+              f"{np.median(v_ms):.2f}, p90 {np.percentile(v_ms, 90):.2f} "
+              f"over {len(v_ms)} frames")
+    for kw in sorted({k for k, _ in viba}):
+        v_kw = [m for k, m in viba if k == kw]
+        print(f"[stereo_inertial] VI-BA kw {kw}: {len(v_kw)} runs, median "
+              f"{np.median(v_kw):.2f} ms, max {np.max(v_kw):.2f} ms")
+    n_win = STEREO_SYNC[1] - STEREO_SYNC[0]
+    print(f"[stereo_inertial] host syncs a frame over frames "
+          f"{STEREO_SYNC[0]}..{STEREO_SYNC[1] - 1}: {n_syncs[0] / n_win:.2f}")
+    if stats["n_maps"] != 1:
+        raise AssertionError(f"stereo_inertial path ended {stats}")
+    if not (imu_t.initialized and imu_t.viba1_done):
+        raise AssertionError("IMU initialization or VIBA1 missing")
+    if not (np.all(np.isfinite(v)) and np.linalg.norm(v) < 3.0):
+        raise AssertionError(f"velocity {v}")
+    _check_stereo_depth(seqs[0], cfg, 1.0)
+    _check_fused_k1(seqs[0], 1.0, "stereo_inertial")
+
+
+KB8_L = (0.0035, 0.0007, -0.002, 0.0002)   # tests/test_stereo_fisheye.py
+KB8_R = (0.0034, 0.0018, -0.0027, 0.0003)
+
+
+def stereo_fisheye_config():
+    """The TUM-VI-like dual-KB8 rig of tests/test_stereo_fisheye.py at
+    512x512: fx = fy = 190.44, the left camera KB8_L, the right camera
+    offset as in the test (fx + 0.5, fy + 0.3, cx - 1, cy + 0.5) with
+    KB8_R, baseline 0.101 m with a small rotation, lapping (0, 511), 1000
+    features, 8 levels, sensor "stereo", the test's KF policy
+    (kf_min_interval 1, kf_max_interval 4), no IMU. Returns (SystemConfig,
+    the right camera)."""
+    f, w = 190.44, 512
+    r_lr = lie.so3_exp(torch.tensor([0.002, -0.001, 0.0008])).numpy()
+    t_lr = (0.101, 0.002, 0.001)
+    right = Camera(fx=f + 0.5, fy=f + 0.3, cx=w / 2 - 1.0, cy=w / 2 + 0.5,
+                   width=w, height=w, kb8=KB8_R)
+    sf = StereoFisheyeConfig(
+        params_r=(right.fx, right.fy, right.cx, right.cy, *KB8_R),
+        r_lr=tuple(float(x) for x in r_lr.reshape(-1)), t_lr=t_lr,
+        lapping_l=(0.0, 511.0), lapping_r=(0.0, 511.0))
+    orb = OrbConfig(n_features=1000, n_levels=8, height=w, width=w)
+    fc = FrameConfig(orb=orb, bf=f * 0.101, camera_model="kb8",
+                     dist_params=KB8_L)
+    return SystemConfig(fx=f, fy=f, cx=w / 2, cy=w / 2, bf=f * 0.101,
+                        frame=fc, sensor="stereo", stereo_fisheye=sf,
+                        kf_min_interval=1, kf_max_interval=4), right
+
+
+def phase_stereo_fisheye(summary, n_frames: int = FISHEYE_FRAMES):
+    """Stereo-fisheye at full width (stereo_fisheye_config) through
+    run_path: n_frames of the room at 20 fps, both images ray-cast through
+    their KB8 models, track_stereo_fisheye. Gates: those of run_path with
+    ATE < 5 cm at with_scale=False (the metric scale from the rig), the
+    fused K1 exactly twice a frame (the left and the right image), K4
+    exactly once a frame (the left x right search) and, on one frame, that
+    launch's search torch.equal to hamming_best2_plain; then the fused K1
+    on one frame's pyramid against plain, and K4's times at that frame's
+    shape."""
+    cfg, right = stereo_fisheye_config()
+    sf = cfg.stereo_fisheye
+    rot_rl = torch.tensor(sf.r_lr, device="cuda").reshape(3, 3).T
+    t_rl = -rot_rl @ torch.tensor(sf.t_lr, device="cuda")
+    world_r = SyntheticWorld(right, device="cuda")
+    seqs, spied = [], []
+
+    def render(seq, i, t):
+        # the corner pixels' rays pass 90 degrees (theta_d > pi / 2 beyond
+        # 299 px from the centre); one that hits no wall renders NaN, black
+        # here as outside a real fisheye's image circle
+        if not seqs:
+            seqs.append(seq)
+        rot_cw, t_cw = seq.pose_cw(t)
+        return tuple(torch.nan_to_num(g, nan=0.0) for g in (
+            seq.world.render(rot_cw, t_cw)[0],
+            world_r.render(rot_rl @ rot_cw, rot_rl @ t_cw + t_rl)[0]))
+
+    launch = kernels.hamming_best2_many
+
+    def spy(searches, big, **kw):
+        out = launch(searches, big, **kw)
+        spied.append((searches, out))
+        return out
+
+    def track(slam, i, t, inputs):
+        if i == n_frames // 2:
+            kernels.hamming_best2_many = spy
+        try:
+            slam.track_stereo_fisheye(*inputs, t)
+        finally:
+            kernels.hamming_best2_many = launch
+    left = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=512,
+                  height=512, kb8=KB8_L)
+    slam = run_path("stereo_fisheye", cfg, FISHEYE_FPS, summary,
+                    {"fast_nms_levels": 2 * n_frames,
+                     "gated_hamming_search": None,
+                     "hamming_best2": n_frames},
+                    render, track, n_frames, cam=left, with_scale=False)
+    if len(spied) != 1 or len(spied[0][0]) != 1:
+        raise AssertionError(f"frame {n_frames // 2} made {len(spied)} K4 "
+                             f"launches")
+    searches, got = spied[0]
+    worst = _check_k4("stereo_fisheye frame", searches, got)
+    (dq, vq, dt, vt), = searches
+    n, m = int(vq.sum()), int(vt.sum())
+    dms = device_ms(lambda reps=1: kernels.hamming_best2_many(
+        searches, MA.BIG, reps=reps))
+    pms = cuda_ms(lambda: MA.hamming_best2_plain(*searches[0]))
+    pairs = dq.shape[0] * dt.shape[0]
+    bms, by = bound_ms(dq.shape[0] * 33 + dt.shape[0] * 33
+                       + dq.shape[0] * 12, pairs * 8, pairs * 512)
+    print(f"[stereo_fisheye] K4 on frame {n_frames // 2}: {dq.shape[0]} x "
+          f"{dt.shape[0]} ({n} x {m} valid, in the lapping areas), equal to "
+          f"plain (max_abs_err {worst}); {dms:.4f} ms on the device, plain "
+          f"{pms:.4f} ms, bound {bms:.5f} ms ({by})")
+    print(f"[stereo_fisheye] {slam.map_stats()}; n_lost {slam.n_lost}")
+    _check_fused_k1(seqs[0], 1.0, "stereo_fisheye")
 
 
 def _room(cfg, fps):
@@ -1405,7 +1723,7 @@ def phase_inertial_geoflow(summary, voc,
                            n_frames: int = INERTIAL_GEOFLOW_FRAMES):
     """bench.py's operating point with GeoFlow's streams on:
     inertial_config() with use_icp, use_of and n_of_slots 256, through
-    _drive_inertial over 240 frames. Gates: those of the inertial phase
+    _drive_inertial over 225 frames. Gates: those of the inertial phase
     but VIBA2 (VIBA1 only), >= 1 accepted ICP prediction, >= 1 EdgeICP row
     with an inter-KF measurement in a VI-BA window, optical-flow points
     appended, the fused K3 once per frame after the first, and the EdgeICP
@@ -1522,25 +1840,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s "
+              f"(total {time.perf_counter() - t_start:.1f} s)")
+        return out
     name = phase_device()
     summary = new_summary()
-    phase_build()
-    phase_fast(summary)
-    phase_fast_fused(summary)
-    phase_hamming(summary)
-    phase_hamming_best2(summary)
-    phase_lk(summary)
-    phase_lk_fused(summary)
-    phase_entry_points(summary)
-    phase_rgbd(summary)
-    phase_of_icp(summary)
-    phase_g1(summary)
-    voc = _vocabulary()
-    phase_reloc(summary, voc)
-    phase_merge(summary, voc)
-    phase_hard(summary, voc)
-    phase_inertial(summary, voc)
-    phase_inertial_geoflow(summary, voc)
+    timed(phase_build)
+    for phase in (phase_fast, phase_fast_fused, phase_hamming,
+                  phase_hamming_best2, phase_lk, phase_lk_fused,
+                  phase_entry_points, phase_rgbd, phase_of_icp, phase_g1,
+                  phase_stereo_inertial, phase_stereo_fisheye):
+        timed(phase, summary)
+    voc = timed(_vocabulary)
+    for phase in (phase_reloc, phase_merge, phase_hard, phase_inertial,
+                  phase_inertial_geoflow):
+        timed(phase, summary, voc)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_frame", "entry_point_launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

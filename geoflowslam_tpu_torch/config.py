@@ -3,16 +3,18 @@
 Frozen copies of the JAX package's OrbConfig (ops/extractor.py), FrameConfig
 (state/frame.py), TrackConfig (pipeline/tracking.py), MappingConfig
 (pipeline/local_mapping.py), LoopConfig (pipeline/loop_closing.py),
-ImuConfig (pipeline/inertial.py), LidarConfig (pipeline/lidar_mapping.py)
-and SystemConfig (pipeline/system.py), with the same fields and defaults.
+ImuConfig (pipeline/inertial.py), LidarConfig (pipeline/lidar_mapping.py),
+StereoFisheyeConfig and SystemConfig (pipeline/system.py), with the same
+fields and defaults.
 The port cannot import the JAX package
 (its __init__ imports jax), so the fields are copied here and a CPU test
 keeps them equal to the originals.
 
 SystemConfig carries every field of the reference, including the options
-the port does not have yet (stereo fisheye, other sensors); the port's
+the port does not have yet (the monocular sensor, local BA off); the port's
 SlamSystem refuses a config that turns any of them on. `loop` takes
-this module's LoopConfig, `imu` this module's ImuConfig.
+this module's LoopConfig, `imu` this module's ImuConfig, `stereo_fisheye`
+this module's StereoFisheyeConfig.
 """
 from __future__ import annotations
 
@@ -165,6 +167,18 @@ class LidarConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StereoFisheyeConfig:
+    """Dual-KB8 stereo rig: the left camera's intrinsics are in FrameConfig
+    (camera_model "kb8", dist_params k0..k3); this holds the right camera,
+    the rig's extrinsics and the lapping areas."""
+    params_r: tuple = ()        # (fx, fy, cx, cy, k0, k1, k2, k3) right cam
+    r_lr: tuple = ()            # 3x3 row-major right-cam -> left-cam rotation
+    t_lr: tuple = ()            # right-cam -> left-cam translation
+    lapping_l: tuple = (0.0, 1e9)   # (u_min, u_max) raw-pixel lapping area
+    lapping_r: tuple = (0.0, 1e9)
+
+
+@dataclasses.dataclass(frozen=True)
 class SystemConfig:
     fx: float = 400.0
     fy: float = 400.0
@@ -200,7 +214,7 @@ class SystemConfig:
     pkt_read_interval: float = 0.25
     pkt_max_pending: int = 16
     record_reproj_err: bool = False
-    stereo_fisheye: Optional[object] = None
+    stereo_fisheye: Optional[StereoFisheyeConfig] = None
 
     def track_cfg(self) -> TrackConfig:
         return TrackConfig(

@@ -1,6 +1,6 @@
 """Synthetic textured room and trajectories (port of
-geoflowslam_tpu/io/synthetic.py, the pinhole RGB-D part and the hard-mode
-sequence).
+geoflowslam_tpu/io/synthetic.py: the RGB-D part, pinhole or KB8 fisheye rays,
+and the hard-mode sequence).
 
 The texture is the reference's numpy value noise (RandomState(seed)), so
 both packages render the same room; rays, plane hits and the bilinear
@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from geoflowslam_tpu_torch.math import cameras as CAM
 from geoflowslam_tpu_torch.math import lie
 
 GRAVITY = np.array([0.0, 0.0, -9.81], np.float32)
@@ -49,6 +50,9 @@ class Camera:
     cy: float = 240.0
     width: int = 640
     height: int = 480
+    # KB8 theta-polynomial coefficients (k0..k3); empty = pinhole. When set
+    # the rays are cast through the Kannala-Brandt model (a fisheye rig)
+    kb8: tuple = ()
 
 
 _AXES_U = ((0, 1, 0), (0, 1, 0), (1, 0, 0), (1, 0, 0), (1, 0, 0), (1, 0, 0))
@@ -77,11 +81,17 @@ class SyntheticWorld:
         ys = torch.arange(cam.height, **f32)[:, None]
         xs = torch.arange(cam.width, **f32)[None, :]
         shape = (cam.height, cam.width)
-        self.dirs_c = torch.stack([
-            torch.broadcast_to((xs - cam.cx) / cam.fx, shape),
-            torch.broadcast_to((ys - cam.cy) / cam.fy, shape),
-            torch.ones(shape, **f32),
-        ], dim=-1)
+        if cam.kb8:
+            uv = torch.stack([torch.broadcast_to(xs, shape),
+                              torch.broadcast_to(ys, shape)], dim=-1)
+            self.dirs_c = CAM.kb8_unproject(
+                (cam.fx, cam.fy, cam.cx, cam.cy, *cam.kb8), uv)
+        else:
+            self.dirs_c = torch.stack([
+                torch.broadcast_to((xs - cam.cx) / cam.fx, shape),
+                torch.broadcast_to((ys - cam.cy) / cam.fy, shape),
+                torch.ones(shape, **f32),
+            ], dim=-1)
 
     @torch.no_grad()
     def render(self, rot_cw: torch.Tensor, t_cw: torch.Tensor):
@@ -117,15 +127,19 @@ def sample_texture(tex: torch.Tensor, u: torch.Tensor,
     """Bilinear lookup of the tiled texture at (u, v) * 97, wrapped.
 
     A float32 remainder can return the modulus itself (a tiny negative
-    argument rounds up), putting the +1 neighbour one past the edge; the
-    indices clamp to the texture, as the reference's gathers do."""
+    argument rounds up), putting the +1 neighbour one past the edge, and a
+    ray that hits no wall (a KB8 ray at 90 degrees) gives NaN; the indices
+    clamp to the texture, as the reference's gathers do (the NaN stays in
+    the pixel)."""
     size = tex.shape[0]
     ui = torch.remainder(u * 97.0, size - 1.0)
     vi = torch.remainder(v * 97.0, size - 1.0)
-    u0 = torch.floor(ui).long()
-    v0 = torch.floor(vi).long()
+    u0 = torch.floor(ui)
+    v0 = torch.floor(vi)
     du = ui - u0
     dv = vi - v0
+    u0 = torch.nan_to_num(u0).long().clamp(0, size - 1)
+    v0 = torch.nan_to_num(v0).long().clamp(0, size - 1)
     u1 = torch.clamp(u0 + 1, max=size - 1)
     v1 = torch.clamp(v0 + 1, max=size - 1)
     return (tex[v0, u0] * (1 - du) * (1 - dv) + tex[v0, u1] * du * (1 - dv)

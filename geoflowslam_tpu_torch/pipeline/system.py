@@ -1,5 +1,5 @@
-"""RGB-D and RGB-D-inertial SLAM façade of the port (the synchronous
-counterpart of geoflowslam_tpu/pipeline/system.py's RGB-D paths).
+"""RGB-D, stereo and their inertial SLAM façade of the port (the synchronous
+counterpart of geoflowslam_tpu/pipeline/system.py's RGB-D and stereo paths).
 
 Per frame, in the caller's thread, on the system's device:
   [m12 feed: pack on the host, unpack on the device] -> motion-model pose
@@ -46,13 +46,15 @@ is initialized; "kf" and "prior" predict the pose from the last body state
 the last KF-anchored state, or jointly with the last frame's state under its
 marginal, and take the VI state when it keeps max(min_inliers_ok, half the
 visual inliers). A lost frame dead-reckons the prediction; KFs come at
-least every 0.5 s, and while lost (InsertKFsWhenLost). Until the IMU is
+least every 0.5 s, and while lost (InsertKFsWhenLost). Without a vocabulary
+the failed frame does the same (the reference re-runs it through its staged
+step) and the frames after it, which start RECENTLY_LOST, take the staged
+step (below). Until the IMU is
 initialized a KF takes the reference's staged KF step, which attempts the
 initialization; after it, the mapping step runs VI-BA over the temporal
-window (8 KFs, 16 for VIBA1 and VIBA2). The IMU path runs on the default
-(fused) path only: it needs a vocabulary and record_reproj_err off. An
-ICP-carried frame there rides the registered pose with the dead-reckoned
-body state, as the reference's fused step keeps it.
+window (8 KFs, 16 for VIBA1 and VIBA2). An ICP-carried frame on the fused
+path rides the registered pose with the dead-reckoned body state, as the
+reference's fused step keeps it.
 
 With `use_icp` every KF is also registered by GICP against the previous
 KF's cloud (the last 40 KF clouds are kept); with the IMU a registration
@@ -85,6 +87,28 @@ into the port's fallbacks, which search from the last pose; with queued
 odometry they first search from the re-run's odometry prediction (its gap
 is 0: the predicted rotation at the last position).
 
+The stereo entry points build the frame without depth and fill each
+keypoint's depth and right u from a matcher: `track_stereo` from the
+rectified pair's SAD search (ops/stereo.stereo_match), `track_stereo_fisheye`
+(a dual-KB8 rig, `cfg.stereo_fisheye`) from the right image's own ORB
+features matched and triangulated against the left's
+(ops/stereo.fisheye_stereo_match: one more fused-FAST launch and one
+best-two Hamming search a frame). Their `*_inertial` variants preintegrate
+the samples first. Every stereo frame takes the staged step, as the
+reference's stereo paths do, and so do the IMU frames that the reference
+runs staged (with `record_reproj_err` every frame, without a vocabulary
+every frame that starts RECENTLY_LOST). Its IMU branches: the pose
+predicted from the last body state once the IMU is initialized; after the
+local-map stage the VI refinement (against the last KF-anchored state, or
+jointly with the last frame's state under its marginal), taken when it
+keeps max(min_inliers_ok, half the visual inliers) inliers, otherwise the
+VI prior dropped; the body state from the VI state (its marginal the next
+prior) or from the pose with a finite-difference velocity; an ICP-carried
+frame's body at the registered pose; a lost frame's KF from the prediction
+(InsertKFsWhenLost); a relocalized frame's body at the new pose. Its time
+guards reset the map and go on with the frame, where the fused path drops
+it.
+
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
 closing). With `cfg.loop` as well, each KF runs place recognition after
@@ -107,8 +131,12 @@ import torch
 from geoflowslam_tpu_torch.config import LidarConfig, SystemConfig
 from geoflowslam_tpu_torch.imu import preintegration as pre
 from geoflowslam_tpu_torch.io import feed_codec as FC
+from geoflowslam_tpu_torch.math import cameras as CAM
 from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
+from geoflowslam_tpu_torch.ops import pyramid as pyr_ops
+from geoflowslam_tpu_torch.ops import stereo as ST
+from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.pipeline import inertial as IN
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
@@ -133,11 +161,11 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D and RGB-D-inertial paths
-    (with OF, ICP, lidar, odometry, relocalization and loop closing)."""
-    off = {"stereo_fisheye": cfg.stereo_fisheye is None,
-           "local_ba_every_kf=False": cfg.local_ba_every_kf,
-           f"sensor={cfg.sensor!r}": cfg.sensor == "rgbd"}
+    """Raise on options outside the ported RGB-D, stereo and stereo-fisheye
+    paths and their inertial variants (with OF, ICP, lidar, odometry,
+    relocalization and loop closing)."""
+    off = {"local_ba_every_kf=False": cfg.local_ba_every_kf,
+           f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo")}
     bad = [name for name, ok in off.items() if not ok]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
@@ -161,10 +189,6 @@ class SlamSystem:
             cfg = dataclasses.replace(cfg, frame=dataclasses.replace(
                 cfg.frame, lidar_features=True))
         check_config(cfg)
-        if cfg.imu is not None and (vocab is None or cfg.record_reproj_err):
-            raise NotImplementedError(
-                "not ported yet: imu on the staged path (the IMU path needs "
-                "a vocabulary and record_reproj_err off)")
         self.cfg = cfg
         self.device = dev
         self.tcfg = cfg.track_cfg()
@@ -263,6 +287,7 @@ class SlamSystem:
         self._vi_prior: Optional[torch.Tensor] = None
         self.imu_modes: dict = {}     # frames per imu_mode
         self.n_vi_accepted = 0        # frames whose VI state was accepted
+        self._rig = None              # the stereo-fisheye rig on the device
 
     # -- public API ----------------------------------------------------------
 
@@ -272,41 +297,98 @@ class SlamSystem:
         already-packed 1-D uint8 buffer, depth then unused). Returns Twc 4x4
         (float64). With an IMU configured the frame takes the inertial
         path without IMU samples."""
-        return self._track(gray, depth, timestamp, None)
+        return self._track(self._rgbd_frame(gray, depth), timestamp, None)
 
     def track_rgbd_inertial(self, gray, depth, acc, gyro, dts,
                             timestamp: float) -> np.ndarray:
         """Track one frame with the IMU samples since the previous frame:
         acc, gyro [S, 3] in the body frame, dts [S] (0 = padding), numpy or
         tensors (S <= ImuConfig.max_samples_per_frame). Returns Twc 4x4."""
-        if self.imu is None:
-            raise ValueError("track_rgbd_inertial needs SystemConfig.imu")
-        return self._track(gray, depth, timestamp, (acc, gyro, dts))
+        self._need_imu("track_rgbd_inertial")
+        return self._track(self._rgbd_frame(gray, depth), timestamp,
+                           (acc, gyro, dts))
 
-    def _track(self, gray, depth, timestamp: float, imu_in):
-        gray, depth = self._encode_feed(gray, depth)
+    def track_stereo(self, gray_l, gray_r, timestamp: float) -> np.ndarray:
+        """Track one rectified stereo pair (gray [H, W] 0..255 each; the
+        right camera bf / fx to the right of the left one). Returns Twc
+        4x4."""
+        return self._track(lambda: self._stereo_frame(gray_l, gray_r),
+                           timestamp, None, stereo=True)
+
+    def track_stereo_inertial(self, gray_l, gray_r, acc, gyro, dts,
+                              timestamp: float) -> np.ndarray:
+        """track_stereo with the IMU samples since the previous frame (as
+        track_rgbd_inertial takes them)."""
+        self._need_imu("track_stereo_inertial")
+        return self._track(lambda: self._stereo_frame(gray_l, gray_r),
+                           timestamp, (acc, gyro, dts), stereo=True)
+
+    def track_stereo_fisheye(self, gray_l, gray_r,
+                             timestamp: float) -> np.ndarray:
+        """Track one frame of the dual-KB8 rig `cfg.stereo_fisheye` (the
+        left camera's KB8 coefficients in cfg.frame.dist_params, camera_model
+        "kb8"). Returns Twc 4x4."""
+        return self._track(lambda: self._fisheye_frame(gray_l, gray_r),
+                           timestamp, None, stereo=True)
+
+    def track_stereo_fisheye_inertial(self, gray_l, gray_r, acc, gyro, dts,
+                                      timestamp: float) -> np.ndarray:
+        """track_stereo_fisheye with the IMU samples since the previous
+        frame."""
+        self._need_imu("track_stereo_fisheye_inertial")
+        return self._track(lambda: self._fisheye_frame(gray_l, gray_r),
+                           timestamp, (acc, gyro, dts), stereo=True)
+
+    def _need_imu(self, entry: str):
+        if self.imu is None:
+            raise ValueError(f"{entry} needs SystemConfig.imu")
+
+    def _track(self, make_frame, timestamp: float, imu_in,
+               stereo: bool = False):
+        """One frame: the time guards, then initialization, the fused
+        inertial step or the (staged) frame step. `make_frame()` builds the
+        frame; `stereo` sends every frame through the staged step."""
         self._t_rel(timestamp)
-        if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
-                and self.imu is not None and self._imu_guard(timestamp)):
+        started = (self.n_frames > 0
+                   and self.state != TrackingState.NOT_INITIALIZED)
+        staged = stereo or (self.imu is not None and (
+            self.cfg.record_reproj_err
+            or (self.vocab is None
+                and self.state == TrackingState.RECENTLY_LOST)))
+        if (started and self.imu is not None and not staged
+                and self._imu_guard(timestamp)):
             return self.current_pose_wc()
-        if (self.n_frames > 0 and self.state != TrackingState.NOT_INITIALIZED
-                and timestamp < self.last_time):
+        p_frame = None
+        if staged and imu_in is not None:
+            # the reference preintegrates a staged frame before its guards
+            p_frame = self.imu.preintegrate_frame(*imu_in, timestamp)
+            imu_in = None
+        if started and timestamp < self.last_time:
             warnings.warn("frame timestamp older than the previous frame: "
                           "resetting the active map")
             self.reset_active_map()
+        elif (started and staged and self.imu is not None
+              and timestamp - self.last_time > self.cfg.max_frame_gap):
+            warnings.warn(f"timestamp jump of "
+                          f"{timestamp - self.last_time:.2f}s with IMU: map "
+                          "recovery")
+            if self.imu.initialized:
+                self._reset_or_new_map()
+            else:
+                self.reset_active_map()
         twc = None
         with self.timers.time("Track_total"):
-            frame = build_frame(gray, depth, self.cfg.frame, self.cfg.fx,
-                                self.cfg.fy, self.cfg.cx, self.cfg.cy)
+            frame = make_frame()
             if self.state == TrackingState.NOT_INITIALIZED:
                 if imu_in is not None:
                     self.imu.preintegrate_frame(*imu_in, timestamp)
                 self._initialize(frame, timestamp)
-            elif self.imu is not None:
+            elif self.imu is not None and not staged:
                 frame, twc = self._track_frame_inertial(frame, imu_in,
                                                         timestamp)
             else:
-                frame, twc = self._track_frame(frame, timestamp)
+                frame, twc = self._track_frame(frame, timestamp, p_frame,
+                                               staged)
         if self._gba is not None and self._gba.active and self._gba.step():
             self._finish_gba()
         if self.cfg.use_of or self.cfg.use_icp:
@@ -316,18 +398,91 @@ class SlamSystem:
         self.last_levels = frame.feat.level
         return twc if twc is not None else self._record_pose(timestamp)
 
-    def _encode_feed(self, gray, depth):
-        """The configured feed on the device: with feed_codec "m12" a
-        (gray, depth) pair is packed on the host (io/feed_codec.pack_m12)
-        and an already-packed 1-D buffer passes through; depth is then
-        None."""
+    def _rgbd_frame(self, gray, depth):
+        """The RGB-D frame's builder, its images already on the device in
+        the configured feed: with feed_codec "m12" a (gray, depth) pair is
+        packed on the host (io/feed_codec.pack_m12) and an already-packed
+        1-D buffer passes through, depth then unused."""
         if self.cfg.frame.feed_codec == "m12" and np.ndim(gray) != 1:
             gray = FC.pack_m12(_host(gray), _host(depth),
                                self.cfg.frame.depth_map_factor)
         gray = torch.as_tensor(gray).to(self.device)
-        if gray.dim() == 1:
-            return gray, None
-        return gray, torch.as_tensor(depth).to(self.device)
+        depth = (None if gray.dim() == 1
+                 else torch.as_tensor(depth).to(self.device))
+        return lambda: self._build(gray, depth)
+
+    def _build(self, gray, depth) -> FrameData:
+        c = self.cfg
+        return build_frame(gray, depth, c.frame, c.fx, c.fy, c.cx, c.cy)
+
+    def _image(self, gray) -> torch.Tensor:
+        return torch.as_tensor(gray).to(self.device).float()
+
+    def _stereo_frame(self, gray_l, gray_r) -> FrameData:
+        """The left image's frame with each keypoint's depth and right u
+        from the rectified pair's SAD search."""
+        gl, gr = self._image(gray_l), self._image(gray_r)
+        frame = self._build(gl, None)
+        ur, depth = ST.stereo_match(gl, gr, frame.feat.uv, frame.feat.valid,
+                                    self.cfg.bf)
+        return frame._replace(u_right=ur, depth_kp=depth)
+
+    def _fisheye_rig(self):
+        """(left KB8 parameters, right KB8 parameters, r_lr, t_lr, sigma^2
+        per level) of the stereo-fisheye rig on the device."""
+        if self._rig is None:
+            c, sf = self.cfg, self.cfg.stereo_fisheye
+            if sf is None or c.frame.camera_model != "kb8":
+                raise ValueError("track_stereo_fisheye needs "
+                                 "SystemConfig.stereo_fisheye and "
+                                 "camera_model 'kb8'")
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self._rig = (
+                torch.tensor([c.fx, c.fy, c.cx, c.cy, *c.frame.dist_params],
+                             **f32),
+                torch.tensor(sf.params_r, **f32),
+                torch.tensor(sf.r_lr, **f32).reshape(3, 3),
+                torch.tensor(sf.t_lr, **f32),
+                torch.tensor([x * x for x in c.frame.orb.scale_factors()],
+                             **f32))
+        return self._rig
+
+    def _fisheye_frame(self, gray_l, gray_r) -> FrameData:
+        """The left image's frame (keypoints undistorted to the
+        pinhole-equivalent grid) with depth from the right image: CLAHE and
+        ORB on the right image, the left rays from the undistorted uv (their
+        raw u, for the lapping gate, re-projected through KB8), the right
+        rays through the right camera's KB8, matched and triangulated; the
+        OF slots stay without depth."""
+        c, sf = self.cfg, self.cfg.stereo_fisheye
+        params_l, params_r, r_lr, t_lr, sig2 = self._fisheye_rig()
+        frame = self._build(self._image(gray_l), None)
+        gr = self._image(gray_r)
+        featr = extract(pyr_ops.clahe(gr) if c.frame.use_clahe else gr,
+                        c.frame.orb)
+        n = c.frame.orb.n_features
+        f = frame.feat
+        uv_l, valid_l = f.uv[:n], f.valid[:n]
+        rays_l = CAM.pinhole_unproject(params_l[:4], uv_l)
+        uraw_l = CAM.kb8_project(params_l, rays_l)[:, 0]
+        rays_r = CAM.kb8_unproject(params_r, featr.uv)
+        mask_l = (valid_l & (uraw_l >= sf.lapping_l[0])
+                  & (uraw_l <= sf.lapping_l[1]))
+        ur_r = featr.uv[:, 0]
+        mask_r = (featr.valid & (ur_r >= sf.lapping_r[0])
+                  & (ur_r <= sf.lapping_r[1]))
+        depth, _, _ = ST.fisheye_stereo_match(
+            rays_l, f.desc[:n], mask_l, sig2[f.level[:n].long()], rays_r,
+            featr.desc, mask_r, sig2[featr.level.long()], r_lr, t_lr,
+            f_err=float(c.fx))
+        ur = torch.where(depth > 0,
+                         uv_l[:, 0] - c.bf / torch.clamp_min(depth, 1e-6),
+                         -1.0)
+        pad = frame.depth_kp.shape[0] - n
+        if pad > 0:
+            depth = torch.cat([depth, depth.new_full((pad,), -1.0)])
+            ur = torch.cat([ur, ur.new_full((pad,), -1.0)])
+        return frame._replace(depth_kp=depth, u_right=ur)
 
     def map_stats(self):
         return {
@@ -531,35 +686,56 @@ class SlamSystem:
         else:
             self._reloc_db = db
 
-    def _track_frame(self, frame: FrameData, timestamp: float):
+    def _track_frame(self, frame: FrameData, timestamp: float,
+                     p_frame: Optional[pre.Preintegrated] = None,
+                     staged: bool = False):
         """Track one frame after initialization; returns the frame with its
         OF slots filled (the next frame's optical-flow source) and the Twc it
-        recorded mid-step, or None when the pose is still to record."""
-        cfg = self.cfg
+        recorded mid-step, or None when the pose is still to record.
+        `staged`: the frame takes the reference's staged step from the start
+        (the stereo frames, and the IMU frames the reference runs staged),
+        with its IMU branches; `p_frame` is then the frame's preintegration
+        (host), None without samples."""
+        cfg, imu = self.cfg, self.imu
         min_ok = cfg.min_inliers_ok
         last_rot, last_t = self.cur_rot, self.cur_t
-        if self.has_vel:
+        vi_on = (imu is not None and imu.initialized and imu.body is not None
+                 and p_frame is not None)
+        p_dev = pred_body = None
+        if imu is not None:
+            mode = ("off" if p_frame is None else "raw" if not vi_on
+                    else "kf" if self._vi_prior is None else "prior")
+            self.imu_modes[mode] = self.imu_modes.get(mode, 0) + 1
+        if vi_on:
+            # PredictStateIMU from the last body state
+            p_dev = pre.to_device(p_frame, self.device)
+            pred_body = imu.predict(p_dev)
+            pr, pt = imu.cam_from_body(pred_body)
+        elif self.has_vel:
             pr, pt = lie.se3_compose(self.vel[0], self.vel[1], last_rot,
                                      last_t)
         else:
             pr, pt = last_rot, last_t
-        fused = self._fused_mode()
+        fused = self._fused_mode() and not staged
+        staged_run = staged or cfg.record_reproj_err
         if (cfg.use_odom and self._odom_queue
-                and (cfg.record_reproj_err
+                and not (imu is not None and imu.initialized)
+                and (staged_run
                      or (self.vocab is None
                          and self.state != TrackingState.OK))):
             pr, pt = self._odom_predict(pr, pt, timestamp)
         icp_ok = None
-        if cfg.use_icp and self.last_frame is not None:
+        if (cfg.use_icp and self.last_frame is not None
+                and (not staged or bool(frame.cloud_valid.any()))):
             pr, pt, icp_ok = self._icp_predict(frame, pr, pt)
         frame, extra_obs, of_innov = self._of_stage(frame, pr, pt)
         res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
                                         pt, self.tcfg, self.last_levels,
                                         extra_obs=extra_obs)
         n1 = int(res.n_inliers)
-        # the reference's staged step: from the start with record_reproj_err,
-        # or as the re-run of a failed frame (the fallbacks below)
-        staged = cfg.record_reproj_err or (n1 < min_ok and not fused)
+        # the reference's staged step: from the start, or as the re-run of a
+        # failed frame (the fallbacks below)
+        staged_step = staged_run or (n1 < min_ok and not fused)
         if (n1 < min_ok and not fused and cfg.use_odom and self._odom_queue
                 and not (icp_ok is not None and bool(icp_ok))):
             # the reference re-runs a failed frame that ICP did not carry
@@ -603,11 +779,29 @@ class SlamSystem:
             # texture; they feed the pose solve but not the health gate
             n2 = n2 - torch.sum((of_innov < 1.0) & (res2.obs_mp >= 0))
         n2 = int(n2)
-        if cfg.use_lidar and (not staged or (
+        if cfg.use_lidar and (not staged_step or (
                 n2 >= min_ok and bool(self.lidar_map.valid.any()))):
             # the refinement's inlier count replaces the health count
             res2 = self._lidar_refine(frame, ms2, res2, timestamp)
             n2 = int(res2.n_inliers)
+        vi = None
+        if vi_on and n2 >= min_ok:
+            # the VI refinement, taken when it keeps max(min_inliers_ok,
+            # n2 / 2) inliers; otherwise the visual pose stands and the VI
+            # prior chain restarts at the next KF-anchored state
+            rot_v, t_v, obs_v, n_vi, accept, body, marg = IN.refine_frame(
+                imu, mode, ms2, frame,
+                res2._replace(n_inliers=torch.tensor(n2, device=self.device)),
+                pred_body, p_dev, self._vi_prior, self.tcfg, min_ok)
+            bias = torch.cat([body.bg, body.ba])
+            pkt = torch.cat([n_vi.reshape(1).float(),
+                             accept.reshape(1).float(), bias]).cpu().numpy()
+            if bool(pkt[1]):
+                self.n_vi_accepted += 1
+                res2, n2 = T.TrackResult(rot_v, t_v, obs_v, n_vi), int(pkt[0])
+                vi = (body, marg, pkt[2:8], bias)
+            else:
+                self._vi_prior = None
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
@@ -625,11 +819,13 @@ class SlamSystem:
             self.ms = ms2
             self._set_pose(res2.rot, res2.t, last_rot, last_t)
             self.last_obs_mp = res2.obs_mp
+            if imu is not None:
+                self._update_body_state(p_frame, vi)
             self.frames_since_kf += 1
             self._kf_watchdog(timestamp)
             twc = None
-            if self._need_new_keyframe(n2):
-                if not cfg.record_reproj_err:
+            if self._need_new_keyframe(n2, timestamp):
+                if not staged_run:
                     # the reference's frame step records the tracked pose
                     # against the reference KF before the KF's mapping
                     twc = self._record_pose(timestamp)
@@ -651,7 +847,11 @@ class SlamSystem:
             self.n_icp_carried += 1
             self.frames_since_kf += 1
             self._set_pose(pr, pt, last_rot, last_t)
-            if timestamp - self._last_kf_time >= 0.5:
+            if imu is not None and imu.initialized and imu.body is not None:
+                # the reference's staged step: the body at the registered
+                # pose, at rest
+                imu.body = imu.body_from_cam(pr, pt)
+            if not staged_run and timestamp - self._last_kf_time >= 0.5:
                 no_obs = torch.full_like(res.obs_mp, M.NO_MP)
                 self._insert_keyframe(frame, timestamp,
                                       T.TrackResult(pr, pt, no_obs, 0), 0,
@@ -668,6 +868,16 @@ class SlamSystem:
         if self.state == TrackingState.OK:
             self.state = TrackingState.RECENTLY_LOST
             self.lost_since = timestamp
+        if (self.state == TrackingState.RECENTLY_LOST and imu is not None
+                and imu.initialized and cfg.insert_kfs_when_lost
+                and timestamp - self._last_kf_time >= 0.5):
+            # InsertKFsWhenLost: a KF at the IMU prediction bridges the gap
+            # (the reference's staged step keeps the frame's bindings)
+            self.cur_rot, self.cur_t = pr, pt
+            if imu.body is not None:
+                imu.body = imu.body_from_cam(pr, pt)
+            self._insert_keyframe(frame, timestamp, T.TrackResult(
+                pr, pt, res2.obs_mp, n2), n2)
         if (self.state == TrackingState.RECENTLY_LOST and not fused
                 and self._relocalize(frame)):
             self.state = TrackingState.OK
@@ -678,6 +888,26 @@ class SlamSystem:
             self.state = TrackingState.LOST
             self._reset_or_new_map()
         return frame, None
+
+    def _update_body_state(self, p_frame: Optional[pre.Preintegrated], vi):
+        """The body state after a tracked staged frame: the accepted VI
+        state with its bias (its marginal the next frame's prior), else the
+        tracked pose with the finite-difference velocity over the frame's
+        gap (at rest without samples or a previous body state)."""
+        imu = self.imu
+        if vi is not None:
+            body, marg, bias_host, bias_dev = vi
+            imu.body = body
+            imu.set_bias(bias_host, bias_dev)
+            self._vi_prior = marg
+            return
+        v = None
+        if imu.body is not None and p_frame is not None:
+            dt = float(p_frame.dt)
+            if dt > 1e-4:
+                b_new = imu.body_from_cam(self.cur_rot, self.cur_t)
+                v = (b_new.p - imu.body.p) / dt
+        imu.body = imu.body_from_cam(self.cur_rot, self.cur_t, v=v)
 
     def _track_frame_inertial(self, frame: FrameData, imu_in,
                               timestamp: float):
@@ -775,7 +1005,8 @@ class SlamSystem:
             self._insert_keyframe(frame, timestamp,
                                   T.TrackResult(rot_f, t_f, obs_f, n2), n2)
             return frame, twc
-        if (self.state == TrackingState.RECENTLY_LOST
+        if self.vocab is not None and (
+                self.state == TrackingState.RECENTLY_LOST
                 or self._carried_streak >= 30):
             rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
                                   self.ref_kf, self.last_levels, self.tcfg,
@@ -871,7 +1102,8 @@ class SlamSystem:
     def _relocalize(self, frame: FrameData) -> bool:
         """Tracking::Relocalization over the top-3 BoW candidates of the
         active map (the staged mode); adopts the pose when pose-only GN
-        keeps min_inliers_ok inliers."""
+        keeps min_inliers_ok inliers (with an IMU, the body state at rest at
+        the new pose, and the pending samples dropped)."""
         if self.vocab is None:
             return False
         n_inl, rot, t, obs2, _ = self._reloc_attempt(frame)
@@ -880,6 +1112,9 @@ class SlamSystem:
         self.cur_rot, self.cur_t = rot, t
         self.last_obs_mp = obs2
         self.n_reloc += 1
+        if self.imu is not None:
+            self.imu.body = self.imu.body_from_cam(rot, t)
+            self.imu.pending = None
         return True
 
     def _kf_watchdog(self, timestamp: float):
@@ -993,13 +1228,14 @@ class SlamSystem:
         # of the KF into it (cur o old^-1 o new); the frame-to-frame motion
         # model is invariant to this right-side world correction. The
         # reference's frame step keeps the frame's tracked bindings (the
-        # KF's new close points join through the local map); its staged
-        # path tracks on from the KF's bindings after mapping
+        # KF's new close points join through the local map); with
+        # record_reproj_err the RGB-D path tracks on from the KF's bindings
+        # after mapping, the IMU's staged frames from the frame's
         ri, ti = lie.se3_inverse(res.rot, res.t)
         dr, dt = lie.se3_compose(ri, ti, kf_rot, kf_t)
         self.cur_rot, self.cur_t = lie.se3_compose(self.cur_rot, self.cur_t,
                                                    dr, dt)
-        if self.cfg.record_reproj_err:
+        if self.cfg.record_reproj_err and self.imu is None:
             self.last_obs_mp = new_obs
         self.ref_kf = slot
         self.ref_kf_inliers = n_inliers

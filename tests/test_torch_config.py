@@ -15,6 +15,7 @@ from geoflowslam_tpu.pipeline.inertial import ImuConfig as JImu
 from geoflowslam_tpu.pipeline.lidar_mapping import LidarConfig as JLidar
 from geoflowslam_tpu.pipeline.local_mapping import MappingConfig as JMap
 from geoflowslam_tpu.pipeline.loop_closing import LoopConfig as JLoop
+from geoflowslam_tpu.pipeline.system import StereoFisheyeConfig as JSF
 from geoflowslam_tpu.pipeline.system import SystemConfig as JSys
 from geoflowslam_tpu.pipeline.tracking import TrackConfig as JTrack
 from geoflowslam_tpu.state.frame import FrameConfig as JFrame
@@ -26,7 +27,8 @@ torch.set_num_threads(2)
 
 PAIRS = [(C.OrbConfig, JOrb), (C.FrameConfig, JFrame), (C.TrackConfig, JTrack),
          (C.MappingConfig, JMap), (C.LoopConfig, JLoop),
-         (C.SystemConfig, JSys), (C.LidarConfig, JLidar)]
+         (C.SystemConfig, JSys), (C.LidarConfig, JLidar),
+         (C.StereoFisheyeConfig, JSF)]
 PORT_DIR = Path(__file__).resolve().parents[1] / "geoflowslam_tpu_torch"
 
 
@@ -87,6 +89,45 @@ def test_config_methods_equal():
               close_depth=3.0)
     assert dataclasses.asdict(sp.track_cfg()) == dataclasses.asdict(sr.track_cfg())
     assert dataclasses.asdict(sp.map_cfg()) == dataclasses.asdict(sr.map_cfg())
+
+
+def test_check_config_stereo_and_cameras():
+    """check_config takes the stereo sensor and a stereo-fisheye rig,
+    check_supported KB8 and radtan keypoint undistortion; the monocular
+    sensor, local BA off and an unknown camera model still raise."""
+    from geoflowslam_tpu_torch.pipeline.system import SlamSystem, check_config
+    from geoflowslam_tpu_torch.state.frame import check_supported
+    kb8 = C.FrameConfig(camera_model="kb8",
+                        dist_params=(0.0035, 0.0007, -0.002, 0.0002))
+    radtan = C.FrameConfig(dist_params=(-0.28, 0.07, 2e-4, 1.8e-5))
+    rig = C.StereoFisheyeConfig(
+        params_r=(190.0, 190.0, 256.0, 256.0, 0.003, 0.001, -0.002, 0.0),
+        r_lr=(1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0), t_lr=(0.1, 0.0, 0.0))
+    base = C.SystemConfig()
+    for cfg in (dataclasses.replace(base, sensor="stereo"),
+                dataclasses.replace(base, sensor="stereo", frame=kb8,
+                                    stereo_fisheye=rig),
+                dataclasses.replace(base, frame=radtan),
+                dataclasses.replace(base, sensor="stereo", frame=kb8,
+                                    stereo_fisheye=rig, imu=C.ImuConfig())):
+        check_config(cfg)
+        check_supported(cfg.frame)
+    for bad in (dict(sensor="mono"), dict(local_ba_every_kf=False),
+                dict(sensor="mono", imu=C.ImuConfig())):
+        with pytest.raises(NotImplementedError):
+            check_config(dataclasses.replace(base, **bad))
+    with pytest.raises(NotImplementedError):
+        check_supported(C.FrameConfig(camera_model="equidistant"))
+    slam = SlamSystem(dataclasses.replace(
+        base, k_max=4, m_max=64, frame=dataclasses.replace(
+            base.frame, orb=C.OrbConfig(n_features=50, n_levels=2,
+                                        height=64, width=64))), "cpu")
+    with pytest.raises(ValueError):          # no rig configured
+        slam.track_stereo_fisheye(np.zeros((64, 64)), np.zeros((64, 64)), 0.0)
+    with pytest.raises(ValueError):          # no IMU configured
+        slam.track_stereo_inertial(np.zeros((64, 64)), np.zeros((64, 64)),
+                                   np.zeros((1, 3)), np.zeros((1, 3)),
+                                   np.zeros(1), 0.0)
 
 
 def test_ate_copy_equal():

@@ -24,9 +24,9 @@ inputs:
   outcomes;
 * apply_scaled_rotation on a random map within 1e-5;
 * check_config accepts imu with use_icp, use_of or both and raises on imu
-  with local_ba_every_kf=False or another sensor, SlamSystem raises on imu
-  without a vocabulary, and SlamSystem(cfg with imu, device="cuda") raises
-  without CUDA.
+  with local_ba_every_kf=False or the monocular sensor, SlamSystem takes
+  imu without a vocabulary or with record_reproj_err (the staged step), and
+  SlamSystem(cfg with imu, device="cuda") raises without CUDA.
 """
 import dataclasses
 
@@ -284,8 +284,9 @@ def test_imu_config_checks():
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))
     check_config(base)
-    with pytest.raises(NotImplementedError):
-        SlamSystem(base, "cpu")             # no vocabulary: staged path
+    # the staged IMU step is ported: no vocabulary, or record_reproj_err
+    for cfg in (base, dataclasses.replace(base, record_reproj_err=True)):
+        assert SlamSystem(cfg, "cpu").imu is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             SlamSystem(base, "cuda")

@@ -34,8 +34,8 @@
   (stride 8, 1024 cloud points): the frame's cloud equal to the JAX
   build_frame's (mask identical, points within 1e-6 m);
 * check_config accepts use_lidar, use_odom and the IMU with use_icp,
-  use_of or both, and raises NotImplementedError on stereo_fisheye,
-  local_ba_every_kf=False and another sensor.
+  use_of or both, and raises NotImplementedError on
+  local_ba_every_kf=False and the monocular sensor.
 """
 import dataclasses
 
@@ -290,7 +290,6 @@ def test_check_config_accepts_sensor_fusion():
                 dataclasses.replace(imu, use_of=True),
                 dataclasses.replace(imu, use_icp=True, use_of=True)):
         check_config(cfg)
-    for bad in (dict(stereo_fisheye=object()), dict(local_ba_every_kf=False),
-                dict(sensor="mono")):
+    for bad in (dict(local_ba_every_kf=False), dict(sensor="mono")):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))
