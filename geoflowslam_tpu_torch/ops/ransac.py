@@ -1,9 +1,9 @@
-"""Batched RANSAC (port of geoflowslam_tpu/ops/ransac.py without the
-homography, which waits for the monocular slice): a fixed batch of
-hypotheses from minimal sets, each solved in closed form and scored over
+"""Batched RANSAC (port of geoflowslam_tpu/ops/ransac.py): a fixed batch
+of hypotheses from minimal sets, each solved in closed form and scored over
 all points at once.
 
-* `ransac_fundamental`: 8-point F with the reference's chi-square scoring;
+* `ransac_fundamental` (8-point F) and `ransac_homography` (4-point DLT),
+  with the reference's chi-square scoring, for the monocular initializer;
 * `ransac_pnp` (6-point DLT) and `refine_pnp_ml` (MLPnP's bearing-vector GN),
   for relocalization;
 * `solve_sim3_horn` and `ransac_sim3`, for loop verification.
@@ -115,6 +115,73 @@ def ransac_fundamental(gen: Optional[torch.Generator], uv1: torch.Tensor,
                        + torch.where(in2, th_score - d2, 0.0), dim=1)
     best = torch.argmax(scores)
     return RansacResult(fs[best], inls[best], torch.sum(inls[best]),
+                        scores[best])
+
+
+# ---------------------------------------------------------------------------
+# Homography (4-point DLT)
+# ---------------------------------------------------------------------------
+
+def _solve_h_4pt(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Homographies from [K, 4, 2] x [K, 4, 2] point sets (p2 ~ H p1), the
+    null vector of the 8 x 9 DLT system scaled to H[2, 2] = 1 (which also
+    fixes the SVD's sign). Returns [K, 3, 3] in the points' dtype.
+
+    The system is solved in float64: on pixel coordinates it is too
+    ill-conditioned for float32, where LAPACK (the reference's path, and
+    torch's on the CPU) and cuSOLVER land ~1e-3 from the exact solution,
+    each elsewhere; in float64 the CPU and the card agree."""
+    dtype = p1.dtype
+    p1, p2 = p1.double(), p2.double()
+    x, y = p1[..., 0], p1[..., 1]
+    u, v = p2[..., 0], p2[..., 1]
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    r1 = torch.stack([-x, -y, -one, zero, zero, zero, u * x, u * y, u], -1)
+    r2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], -1)
+    a = torch.stack([r1, r2], dim=-2).reshape(*p1.shape[:-2], 8, 9)
+    vt = torch.linalg.svd(a, full_matrices=True)[2]
+    h = vt[..., 8, :].reshape(*p1.shape[:-2], 3, 3)
+    h22 = h[..., 2:3, 2:3]
+    return (h / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)).to(dtype)
+
+
+def _h_transfer_dist2(h: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor):
+    """Squared symmetric transfer distances of [N] point pairs under
+    [K, 3, 3] homographies: (|H^-1 p2 - p1|^2, |H p1 - p2|^2), two [K, N]."""
+    ones = torch.ones((p1.shape[0], 1), dtype=p1.dtype, device=p1.device)
+    h1 = torch.cat([p1, ones], dim=1)
+    h2 = torch.cat([p2, ones], dim=1)
+
+    def dehom(q):
+        w = q[..., 2:3]
+        return q[..., :2] / torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+
+    q2 = dehom(h1 @ h.transpose(-1, -2))
+    q1 = dehom(h2 @ torch.linalg.inv(h).transpose(-1, -2))
+    return (torch.sum((q1 - p1) ** 2, dim=-1),
+            torch.sum((q2 - p2) ** 2, dim=-1))
+
+
+def ransac_homography(gen: Optional[torch.Generator], uv1: torch.Tensor,
+                      uv2: torch.Tensor, valid: torch.Tensor,
+                      n_hyp: int = 128, sigma: float = 1.0,
+                      sample_sets: Optional[torch.Tensor] = None
+                      ) -> RansacResult:
+    """H-RANSAC with TwoViewReconstruction::CheckHomography's scoring: per
+    point th - chi2 for chi2 < th = 5.991 sigma^2, both directions.
+    `sample_sets` [n_hyp, 4] replaces the draw from `gen`."""
+    idx = (sample_sets if sample_sets is not None
+           else _sample_minimal_sets(gen, valid, n_hyp, 4))
+    hs = _solve_h_4pt(uv1[idx], uv2[idx])
+    th = 5.991 * sigma * sigma
+    d12, d21 = _h_transfer_dist2(hs, uv1, uv2)
+    in1 = (d12 < th) & valid
+    in2 = (d21 < th) & valid
+    inls = in1 & in2
+    scores = torch.sum(torch.where(in1, th - d12, 0.0)
+                       + torch.where(in2, th - d21, 0.0), dim=1)
+    best = torch.argmax(scores)
+    return RansacResult(hs[best], inls[best], torch.sum(inls[best]),
                         scores[best])
 
 

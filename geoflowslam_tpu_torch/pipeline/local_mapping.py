@@ -8,6 +8,12 @@ best covisible KFs (the gated Hamming search, the CUDA kernel on the card)
 -> descriptor/normal refresh -> map-point culling -> KF culling -> the
 local-window recompute for the tracker.
 
+Monocular KFs create their points by triangulation instead
+(`triangulate_new_points`, CreateNewMapPoints): mutual ratio-0.8 matches of
+the unbound keypoints against each of the three best covisible KFs (one
+best-two Hamming launch a neighbour, both directions in it), epipolar
+triangulation with reprojection, depth and parallax gates.
+
 With an IMU, VI-BA over the temporal KF window (`vi_ba_step`) takes the
 local BA's place.
 
@@ -24,6 +30,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from geoflowslam_tpu_torch.config import TH_LOW, MappingConfig, TrackConfig
+from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.math.triangulate import triangulate_points_f64
 from geoflowslam_tpu_torch.ops import matching
 from geoflowslam_tpu_torch.ops.indexing import (scatter_set, scatter_set_2d,
                                                 topk_stable)
@@ -435,6 +443,94 @@ def refresh_point_stats(ms: M.MapState, center_kf: int, n_window: int = 10,
     tgt = torch.where(has & (n_obs >= 2), mp, m)
     return ms._replace(mp_desc=scatter_set(ms.mp_desc, tgt, new_desc),
                        mp_normal=scatter_set(ms.mp_normal, tgt, new_norm))
+
+
+# ---------------------------------------------------------------------------
+# Monocular triangulation of new points (CreateNewMapPoints)
+# ---------------------------------------------------------------------------
+
+def triangulate_new_points(ms: M.MapState, center_kf: int,
+                           cfg: MappingConfig, max_new: int = 256,
+                           n_neighbors: int = 3):
+    """Match the centre KF's unbound keypoints against its `n_neighbors`
+    best covisible KFs in turn and triangulate (the reference unrolls the
+    top few of CreateNewMapPoints' 10-20). The neighbours are the top of
+    cov[centre] * kf_valid, ties to the lowest slot: with fewer KFs than
+    neighbours, slots that share nothing (the centre itself, empty or
+    culled slots) come as they are. Each search binds points that the next
+    one's free mask reads, so the three run one after another.
+    Returns (ms, points made)."""
+    row = M.covisibility(ms)[center_kf] * ms.kf_valid
+    _, nbs = topk_stable(row, n_neighbors)
+    total = torch.zeros((), dtype=torch.long, device=row.device)
+    for i in range(n_neighbors):
+        ms, n_new = _triangulate_with(ms, center_kf, nbs[i], cfg, max_new)
+        total = total + n_new
+    return ms, total
+
+
+def _triangulate_with(ms: M.MapState, center_kf: int, nb: torch.Tensor,
+                      cfg: MappingConfig, max_new: int):
+    """New points from the centre KF and one neighbour `nb` (a 0-d slot
+    tensor): the mutual match of their free keypoints, triangulated in the
+    centre camera; kept with both reprojections under 2 px, depth in
+    (0.1, 50) and parallax (baseline / depth) over 0.01, at most `max_new`,
+    lowest keypoint first; bound in both KFs. Returns (ms, points made)."""
+    n = ms.n_kp
+    dev = ms.kf_valid.device
+    free_c = ms.kf_kp_valid[center_kf] & (ms.kf_obs_mp[center_kf] == M.NO_MP)
+    free_n = ms.kf_kp_valid[nb] & (ms.kf_obs_mp[nb] == M.NO_MP)
+    m_idx, _ = matching.match_descriptors(
+        ms.kf_desc[center_kf], free_c, ms.kf_desc[nb], free_n,
+        max_dist=TH_LOW, ratio=0.8, mutual=True)
+
+    def rays(uv):
+        return torch.stack([(uv[:, 0] - cfg.cx) / cfg.fx,
+                            (uv[:, 1] - cfg.cy) / cfg.fy,
+                            torch.ones_like(uv[:, 0])], dim=1)
+
+    rays_c = rays(ms.kf_uv[center_kf])
+    rays_n = rays(ms.kf_uv[nb][torch.clamp_min(m_idx, 0).long()])
+    # T_nc = T_n T_c^-1: the centre camera is the reference frame
+    rci, tci = lie.se3_inverse(ms.kf_rot[center_kf], ms.kf_t[center_kf])
+    r_nc, t_nc = lie.se3_compose(ms.kf_rot[nb], ms.kf_t[nb], rci, tci)
+    pts_c, tri_ok = triangulate_points_f64(rays_c, rays_n, r_nc, t_nc)
+
+    def reproj_err(r, pts):
+        z = torch.where(torch.abs(pts[:, 2]) < 1e-6, 1e-6, pts[:, 2])
+        return torch.linalg.norm(pts[:, :2] / z[:, None] - r[:, :2],
+                                 dim=1) * cfg.fx
+
+    e1 = reproj_err(rays_c, pts_c)
+    e2 = reproj_err(rays_n, pts_c @ r_nc.T + t_nc)
+    baseline = torch.linalg.norm(t_nc)
+    good = ((m_idx >= 0) & tri_ok & (e1 < 2.0) & (e2 < 2.0)
+            & (pts_c[:, 2] > 0.1) & (pts_c[:, 2] < 50.0)
+            & (baseline / torch.clamp_min(pts_c[:, 2], 1e-3) > 0.01))
+    pts_w = pts_c @ rci.T + tci
+    # the cap, as the reference ranks it: good first, then by index
+    _, order = topk_stable(
+        good.float() - 1e-3 * torch.arange(n, dtype=torch.float32,
+                                           device=dev), max_new)
+    sel = torch.zeros((n,), dtype=torch.bool, device=dev)
+    sel[order] = True
+    make = good & sel
+
+    ms, mp_slots = M.free_mp_slots(ms, n, use_mask=make)
+    new_ids = torch.where(make, mp_slots, M.NO_MP).to(torch.int32)
+    d = pts_w - tci
+    dist = torch.linalg.norm(d, dim=1)
+    normal = d / torch.clamp_min(dist[:, None], 1e-6)
+    max_d = dist * cfg.scale_factor ** ms.kf_level[center_kf].float()
+    min_d = max_d / (cfg.scale_factor ** 7)
+    ms = M.add_map_points(ms, mp_slots, pts_w, ms.kf_desc[center_kf], normal,
+                          min_d, max_d, center_kf, make)
+    obs = ms.kf_obs_mp
+    obs = M._set_row(obs, center_kf,
+                     torch.where(make, new_ids, obs[center_kf]))
+    tgt = torch.where(make & (m_idx >= 0), m_idx.long(), n)
+    obs = M._set_row(obs, nb, scatter_set(obs[nb], tgt, new_ids))
+    return ms._replace(kf_obs_mp=obs), make.sum()
 
 
 def _batched_hamming(descs: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""RGB-D, stereo and their inertial SLAM façade of the port (the synchronous
-counterpart of geoflowslam_tpu/pipeline/system.py's RGB-D and stereo paths).
+"""RGB-D, stereo, monocular and their inertial SLAM façade of the port (the
+synchronous counterpart of geoflowslam_tpu/pipeline/system.py).
 
 Per frame, in the caller's thread, on the system's device:
   [m12 feed: pack on the host, unpack on the device] -> motion-model pose
@@ -109,6 +109,24 @@ frame's body at the registered pose; a lost frame's KF from the prediction
 guards reset the map and go on with the frame, where the fused path drops
 it.
 
+The monocular entry points (`sensor="mono"`) build the frame without depth
+and take the staged step on every frame, as the reference's
+`track_monocular` does. Initialization is MonocularInitialization
+(pipeline/mono_init.py): the first frame with more than 100 keypoints is
+held, each later frame is matched against it (one best-two Hamming launch)
+and reconstructed from F or H; while that fails the held frame is replaced
+once it is more than 1 s old. On success both KFs and the triangulated
+points seed the map at median depth 1, and one local BA polishes it. A
+monocular KF creates its points by triangulation against its three best
+covisible KFs (local_mapping.triangulate_new_points: three more launches),
+after the IMU block and before local BA or VI-BA. With the IMU
+(`track_monocular_inertial`) the initialization solves the scale as well
+(scale_free), ScaleRefinement re-pins it on a KF more than 5 s after the
+init at most every 10 s, and VIBA1 and VIBA2 first re-run the
+initialization (scale_free) and then the wide VI-BA; each of these folds
+its map transform into the trajectory and re-anchors the tracked state on
+the KF.
+
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
 closing). With `cfg.loop` as well, each KF runs place recognition after
@@ -140,6 +158,7 @@ from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.pipeline import inertial as IN
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
+from geoflowslam_tpu_torch.pipeline import mono_init as MI
 from geoflowslam_tpu_torch.pipeline import of_tracking as OF
 from geoflowslam_tpu_torch.pipeline import reloc as R
 from geoflowslam_tpu_torch.pipeline import tracking as T
@@ -161,11 +180,19 @@ class TrackingState(enum.Enum):
 
 
 def check_config(cfg: SystemConfig) -> None:
-    """Raise on options outside the ported RGB-D, stereo and stereo-fisheye
-    paths and their inertial variants (with OF, ICP, lidar, odometry,
-    relocalization and loop closing)."""
+    """Raise on options outside the ported RGB-D, stereo, stereo-fisheye and
+    monocular paths and their inertial variants (with OF, ICP, lidar,
+    odometry, relocalization and loop closing; monocular without the four
+    GeoFlow streams)."""
+    mono = cfg.sensor == "mono"
     off = {"local_ba_every_kf=False": cfg.local_ba_every_kf,
-           f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo")}
+           f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo",
+                                                    "mono")}
+    off.update({f"sensor='mono' with {name}": not (mono and on)
+                for name, on in (("use_of", cfg.use_of),
+                                 ("use_icp", cfg.use_icp),
+                                 ("use_lidar", cfg.use_lidar),
+                                 ("use_odom", cfg.use_odom))})
     bad = [name for name, ok in off.items() if not ok]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
@@ -288,6 +315,16 @@ class SlamSystem:
         self.imu_modes: dict = {}     # frames per imu_mode
         self.n_vi_accepted = 0        # frames whose VI state was accepted
         self._rig = None              # the stereo-fisheye rig on the device
+        # monocular initialization: the held (frame, time), the RANSAC
+        # generator, the attempts made; the last ScaleRefinement (seconds
+        # since the first frame)
+        self._pending_init_frame = None
+        self._init_gen = torch.Generator(device=dev)
+        self._init_gen.manual_seed(1234)
+        self.n_init_attempts = 0
+        self.mono_init_info: Optional[dict] = None
+        self.n_triangulated: list = []    # points per monocular KF (device)
+        self._last_scale_ref = -1e18
 
     # -- public API ----------------------------------------------------------
 
@@ -313,7 +350,7 @@ class SlamSystem:
         right camera bf / fx to the right of the left one). Returns Twc
         4x4."""
         return self._track(lambda: self._stereo_frame(gray_l, gray_r),
-                           timestamp, None, stereo=True)
+                           timestamp, None, staged=True)
 
     def track_stereo_inertial(self, gray_l, gray_r, acc, gyro, dts,
                               timestamp: float) -> np.ndarray:
@@ -321,7 +358,7 @@ class SlamSystem:
         track_rgbd_inertial takes them)."""
         self._need_imu("track_stereo_inertial")
         return self._track(lambda: self._stereo_frame(gray_l, gray_r),
-                           timestamp, (acc, gyro, dts), stereo=True)
+                           timestamp, (acc, gyro, dts), staged=True)
 
     def track_stereo_fisheye(self, gray_l, gray_r,
                              timestamp: float) -> np.ndarray:
@@ -329,7 +366,7 @@ class SlamSystem:
         left camera's KB8 coefficients in cfg.frame.dist_params, camera_model
         "kb8"). Returns Twc 4x4."""
         return self._track(lambda: self._fisheye_frame(gray_l, gray_r),
-                           timestamp, None, stereo=True)
+                           timestamp, None, staged=True)
 
     def track_stereo_fisheye_inertial(self, gray_l, gray_r, acc, gyro, dts,
                                       timestamp: float) -> np.ndarray:
@@ -337,26 +374,55 @@ class SlamSystem:
         frame."""
         self._need_imu("track_stereo_fisheye_inertial")
         return self._track(lambda: self._fisheye_frame(gray_l, gray_r),
-                           timestamp, (acc, gyro, dts), stereo=True)
+                           timestamp, (acc, gyro, dts), staged=True)
+
+    def track_monocular(self, gray, timestamp: float) -> np.ndarray:
+        """Track one monocular frame (gray [H, W] 0..255, numpy or a
+        tensor; cfg.sensor "mono"). Returns Twc 4x4 (float64)."""
+        self._need_mono("track_monocular")
+        return self._track(lambda: self._build(self._image(gray), None),
+                           timestamp, None, staged=True)
+
+    def track_monocular_inertial(self, gray, acc, gyro, dts,
+                                 timestamp: float) -> np.ndarray:
+        """track_monocular with the IMU samples since the previous frame (as
+        track_rgbd_inertial takes them)."""
+        self._need_mono("track_monocular_inertial")
+        self._need_imu("track_monocular_inertial")
+        return self._track(lambda: self._build(self._image(gray), None),
+                           timestamp, (acc, gyro, dts), staged=True)
+
+    def _need_mono(self, entry: str):
+        if self.cfg.sensor != "mono":
+            raise ValueError(f"{entry} needs SystemConfig(sensor='mono')")
 
     def _need_imu(self, entry: str):
         if self.imu is None:
             raise ValueError(f"{entry} needs SystemConfig.imu")
 
     def _track(self, make_frame, timestamp: float, imu_in,
-               stereo: bool = False):
+               staged: bool = False):
         """One frame: the time guards, then initialization, the fused
         inertial step or the (staged) frame step. `make_frame()` builds the
-        frame; `stereo` sends every frame through the staged step."""
+        frame; `staged` sends every frame through the staged step (the
+        stereo and monocular entry points)."""
         self._t_rel(timestamp)
         started = (self.n_frames > 0
                    and self.state != TrackingState.NOT_INITIALIZED)
-        staged = stereo or (self.imu is not None and (
+        staged = staged or (self.imu is not None and (
             self.cfg.record_reproj_err
             or (self.vocab is None
                 and self.state == TrackingState.RECENTLY_LOST)))
         if (started and self.imu is not None and not staged
                 and self._imu_guard(timestamp)):
+            return self.current_pose_wc()
+        if (started and self.imu is None and not staged
+                and timestamp < self.last_time and self._can_fuse()):
+            # the reference's fused step drops the frame: no track, no
+            # count, no pose, last_time kept
+            warnings.warn("frame timestamp older than the previous frame: "
+                          "resetting the active map")
+            self.reset_active_map()
             return self.current_pose_wc()
         p_frame = None
         if staged and imu_in is not None:
@@ -592,6 +658,7 @@ class SlamSystem:
         self._last_kf_slot = None
         if self.lidar_map is not None:
             self.lidar_map = LD.create_local_map(self._lidar_cfg, self.device)
+        self._pending_init_frame = None
         self._restart()
 
     # -- internals -------------------------------------------------------------
@@ -602,6 +669,19 @@ class SlamSystem:
         self.last_obs_mp = None
         self.local_masks = None
         self._vi_prior = None
+
+    def _can_fuse(self) -> bool:
+        """The reference's choice of its fused frame step for a frame of the
+        RGB-D entry points: tracking OK, or RECENTLY_LOST with a
+        vocabulary; without record_reproj_err; with bindings to track from;
+        with OF or ICP, a previous frame."""
+        if (self.cfg.use_of or self.cfg.use_icp) and self.last_frame is None:
+            return False
+        healthy = self.state == TrackingState.OK
+        recovering = (self.state == TrackingState.RECENTLY_LOST
+                      and self.vocab is not None)
+        return ((healthy or recovering) and not self.cfg.record_reproj_err
+                and self.last_obs_mp is not None)
 
     def _imu_guard(self, timestamp: float) -> bool:
         """The reference's frame-time guards with an IMU (its fused path):
@@ -649,6 +729,8 @@ class SlamSystem:
         return int(M.free_kf_slot(self.ms))
 
     def _initialize(self, frame: FrameData, timestamp: float):
+        if self.cfg.sensor == "mono":
+            return self._initialize_mono(frame, timestamp)
         slot = self._free_kf_slot()
         ms, res = T.stereo_initialization(self.ms, frame,
                                           self._t_rel(timestamp), slot,
@@ -672,6 +754,56 @@ class SlamSystem:
             self.imu.pending = None     # the first KF has no segment
             self.imu.on_keyframe(slot)
             self.imu.body = self.imu.body_from_cam(self.cur_rot, self.cur_t)
+
+    def _initialize_mono(self, frame: FrameData, timestamp: float):
+        """Tracking::MonocularInitialization: hold a frame with more than 100
+        keypoints, reconstruct against each later one; while that fails,
+        the held frame is replaced once it is more than 1 s old. On success
+        both KFs and the points seed the map, the IMU registers both KFs
+        (the first-to-second samples fold into the next segment), and one
+        local BA polishes the map (the tracked pose stays the init's)."""
+        if self._pending_init_frame is None:
+            if int(frame.feat.valid.sum()) > 100:
+                self._pending_init_frame = (frame, timestamp)
+            return
+        f1, t1 = self._pending_init_frame
+        c = self.cfg
+        self.n_init_attempts += 1
+        init = MI.try_monocular_init(self._init_gen, f1, frame, c.fx, c.fy,
+                                     c.cx, c.cy, use_gms=c.use_gms_init)
+        if not bool(init.ok):
+            if timestamp - t1 > 1.0:
+                self._pending_init_frame = (frame, timestamp)
+            return
+        ms, s1, s2, obs2, n_pts = MI.create_initial_map_mono(
+            self.ms, f1, frame, init, self._t_rel(t1),
+            self._t_rel(timestamp), c.frame.orb.scale_factor,
+            c.frame.orb.n_levels)
+        self.ms = ms
+        self.cur_rot, self.cur_t = init.rot21, init.t21
+        self.last_obs_mp = obs2
+        self.local_masks = None
+        self.ref_kf = s2
+        self.ref_kf_inliers = int(n_pts)
+        self.frames_since_kf = 0
+        self._last_kf_time = timestamp
+        self.state = TrackingState.OK
+        self._gen_counter += 2
+        self._kf_gen[s1] = self._gen_counter - 1
+        self._kf_gen[s2] = self._gen_counter
+        self._db_insert_kf(s1)
+        self._db_insert_kf(s2)
+        self._pending_init_frame = None
+        self.mono_init_info = dict(time=timestamp, points=int(n_pts),
+                                   homography=bool(init.use_h),
+                                   attempts=self.n_init_attempts)
+        if self.imu is not None:
+            self.imu.pending = None
+            self.imu.on_keyframe(s1)
+            self.imu.on_keyframe(s2)
+            self.imu.body = self.imu.body_from_cam(self.cur_rot, self.cur_t)
+        # the reference runs GlobalBundleAdjustemnt(20) here
+        self.ms, _ = LM.local_ba_step(self.ms, s2, self.mcfg)
 
     def _db_insert_kf(self, slot: int):
         """Enter a KF into the BoW database; for loop-closing systems the
@@ -1206,7 +1338,8 @@ class SlamSystem:
         or its staged KF step until the IMU is initialized and, with
         use_lidar, for the KF of a tracked frame (`fused_kf` False)."""
         if ((self.imu is not None and not self.imu.initialized)
-                or (self.cfg.use_lidar and not fused_kf)):
+                or (self.cfg.use_lidar and not fused_kf)
+                or self.cfg.sensor == "mono"):
             return self._insert_keyframe_staged(frame, timestamp, res,
                                                 n_inliers)
         slot = self._free_kf_slot()
@@ -1299,20 +1432,20 @@ class SlamSystem:
             walk_info=imu.walk_info_dev,
             icp=self._icp_factors(slots_p, kw) if self.cfg.use_icp else None)
 
-    def _viba_width(self, timestamp: float) -> int:
-        """The VI-BA window of a KF: 8, or 16 for the staged refinements
-        VIBA1 and VIBA2 (the first KF past 5 s and 10 s after the IMU
-        initialization)."""
+    def _viba_width(self, timestamp: float):
+        """(the VI-BA window of a KF, whether this KF is a VIBA1 or VIBA2
+        transition): 8, or 16 at the staged refinements VIBA1 and VIBA2
+        (the first KF past 5 s and 10 s after the IMU initialization)."""
         imu, t = self.imu, self._t_rel(timestamp)
         if imu.init_time is not None and not imu.viba1_done \
                 and t - imu.init_time > 5.0:
             imu.viba1_done = True
-            return 16
+            return 16, True
         if imu.init_time is not None and not imu.viba2_done \
                 and t - imu.init_time > 10.0:
             imu.viba2_done = True
-            return 16
-        return 8
+            return 16, True
+        return 8, False
 
     def _vi_window_for_kf(self, slot: int, timestamp: float):
         """Bind the pending IMU segment to the new KF and return (velocity,
@@ -1320,7 +1453,7 @@ class SlamSystem:
         the window holds fewer than 3 KFs."""
         imu = self.imu
         imu.on_keyframe(slot, upto_ts=timestamp)
-        kw = self._viba_width(timestamp)
+        kw, _ = self._viba_width(timestamp)
         slots = imu.contiguous_window(kw)
         if len(slots) < 3:
             return None
@@ -1334,11 +1467,14 @@ class SlamSystem:
         initialized, and for every tracked frame's KF with use_lidar): KF
         insertion, the host-gated inter-KF registration (use_icp), the IMU
         initialization attempt (on success VI-BA over the init window, kw
-        10) or the VI state stamped on the KF, local BA (VI-BA once the IMU
-        is initialized), duplicate fusion, point statistics, point and KF
-        culling, the cloud into the local and global maps (use_lidar) at
-        the optimized KF pose, loop detection; tracking goes on from the
-        KF's pose and its live bindings, without the motion model."""
+        10) or the VI state stamped on the KF, with a monocular camera the
+        triangulation of new points and the ScaleRefinement cadence, local
+        BA (VI-BA once the IMU is initialized; a monocular VIBA1 or VIBA2
+        re-runs the initialization first), duplicate fusion, point
+        statistics, point and KF culling, the cloud into the local and
+        global maps (use_lidar) at the optimized KF pose, loop detection;
+        tracking goes on from the KF's pose and its live bindings, without
+        the motion model."""
         imu = self.imu
         slot = self._free_kf_slot()
         with self.timers.time("New_KF"):
@@ -1364,11 +1500,34 @@ class SlamSystem:
                     kf_vel=M._set_row(self.ms.kf_vel, slot, imu.body.v),
                     kf_bias=M._set_row(self.ms.kf_bias, slot,
                                        imu.bias_on_device()))
+        mono = self.cfg.sensor == "mono"
+        if mono:
+            # CreateNewMapPoints: monocular points come from triangulation
+            self.ms, n_tri = LM.triangulate_new_points(self.ms, slot,
+                                                       self.mcfg)
+            self.n_triangulated.append(n_tri)
+            if len(self.n_triangulated) > 4096:
+                del self.n_triangulated[:2048]
+            t_rel = self._t_rel(timestamp)
+            if (imu is not None and imu.initialized
+                    and imu.init_time is not None
+                    and t_rel - imu.init_time > 5.0
+                    and t_rel - self._last_scale_ref > 10.0):
+                # ScaleRefinement: re-pin the metric scale against the IMU
+                self._last_scale_ref = t_rel
+                self.ms = imu.scale_refinement(self.ms)
+                self._reanchor_on_imu_transform(slot, imu.body is not None)
         with self.timers.time("LBA"):
             slots = []
             if (imu is not None and imu.initialized
                     and len(imu.kf_order) >= 4):
-                kw = self._viba_width(timestamp)
+                kw, transition = self._viba_width(timestamp)
+                if transition and mono:
+                    # VIBA1 / VIBA2 re-run InitializeIMU over the grown
+                    # chain before the wide VI-BA
+                    self.ms, did = imu.reinitialize(self.ms, scale_free=True)
+                    if did:
+                        self._reanchor_on_imu_transform(slot, True)
                 slots = imu.contiguous_window(kw)
             if len(slots) >= 3:
                 self.ms, _ = LM.vi_ba_step(self.ms, self._vi_window(slots, kw),
@@ -1413,7 +1572,8 @@ class SlamSystem:
         the init window (kw 10) and the tracked state re-anchored on the
         rotated and scaled map."""
         imu = self.imu
-        self.ms, did = imu.try_initialize(self.ms)
+        self.ms, did = imu.try_initialize(
+            self.ms, scale_free=self.cfg.sensor == "mono")
         if not did:
             return
         imu.init_time = self._t_rel(timestamp)
@@ -1426,6 +1586,18 @@ class SlamSystem:
         imu.body = imu.body_from_cam(self.cur_rot, self.cur_t,
                                      v=self.ms.kf_vel[slot])
         self.has_vel = False
+
+    def _reanchor_on_imu_transform(self, slot: int, with_body: bool):
+        """After a rescaling IMU step (ScaleRefinement, a re-run
+        initialization): fold its map transform into the trajectory and
+        re-anchor the tracked state on KF `slot`, the body state (with
+        `with_body`) at its pose and velocity."""
+        self._consume_imu_transform()
+        self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
+        self.has_vel = False
+        if with_body:
+            self.imu.body = self.imu.body_from_cam(
+                self.cur_rot, self.cur_t, v=self.ms.kf_vel[slot])
 
     def _icp_prev(self) -> Optional[int]:
         """The KF the next inter-KF registration pairs with: the newest KF

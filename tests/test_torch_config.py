@@ -93,8 +93,9 @@ def test_config_methods_equal():
 
 def test_check_config_stereo_and_cameras():
     """check_config takes the stereo sensor and a stereo-fisheye rig,
-    check_supported KB8 and radtan keypoint undistortion; the monocular
-    sensor, local BA off and an unknown camera model still raise."""
+    check_supported KB8 and radtan keypoint undistortion, and the monocular
+    sensor with and without the IMU; local BA off, the monocular sensor
+    with OF or lidar, and an unknown camera model still raise."""
     from geoflowslam_tpu_torch.pipeline.system import SlamSystem, check_config
     from geoflowslam_tpu_torch.state.frame import check_supported
     kb8 = C.FrameConfig(camera_model="kb8",
@@ -109,11 +110,14 @@ def test_check_config_stereo_and_cameras():
                                     stereo_fisheye=rig),
                 dataclasses.replace(base, frame=radtan),
                 dataclasses.replace(base, sensor="stereo", frame=kb8,
-                                    stereo_fisheye=rig, imu=C.ImuConfig())):
+                                    stereo_fisheye=rig, imu=C.ImuConfig()),
+                dataclasses.replace(base, sensor="mono"),
+                dataclasses.replace(base, sensor="mono", imu=C.ImuConfig())):
         check_config(cfg)
         check_supported(cfg.frame)
-    for bad in (dict(sensor="mono"), dict(local_ba_every_kf=False),
-                dict(sensor="mono", imu=C.ImuConfig())):
+    for bad in (dict(sensor="mono", use_of=True),
+                dict(local_ba_every_kf=False),
+                dict(sensor="mono", imu=C.ImuConfig(), use_lidar=True)):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))
     with pytest.raises(NotImplementedError):

@@ -160,7 +160,8 @@ def test_cuda_system_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    for kw in (dict(sensor="mono"), dict(local_ba_every_kf=False)):
+    for kw in (dict(sensor="mono", use_odom=True),
+               dict(local_ba_every_kf=False)):
         with pytest.raises(NotImplementedError):
             SlamSystem(C.SystemConfig(k_max=4, m_max=64, **kw), "cpu")
 

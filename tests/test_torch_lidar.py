@@ -35,7 +35,8 @@
   build_frame's (mask identical, points within 1e-6 m);
 * check_config accepts use_lidar, use_odom and the IMU with use_icp,
   use_of or both, and raises NotImplementedError on
-  local_ba_every_kf=False and the monocular sensor.
+  local_ba_every_kf=False and on the monocular sensor with use_lidar or
+  use_odom.
 """
 import dataclasses
 
@@ -290,6 +291,8 @@ def test_check_config_accepts_sensor_fusion():
                 dataclasses.replace(imu, use_of=True),
                 dataclasses.replace(imu, use_icp=True, use_of=True)):
         check_config(cfg)
-    for bad in (dict(local_ba_every_kf=False), dict(sensor="mono")):
+    for bad in (dict(local_ba_every_kf=False),
+                dict(sensor="mono", use_lidar=True),
+                dict(sensor="mono", use_odom=True)):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))
