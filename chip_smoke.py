@@ -155,7 +155,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
      IMU initialized scale_free, VIBA1 with its scale_free re-run of the
      initialization, |v| < 3 m/s, the launch counts of 17; the Sim3 scale
      against ground truth printed.
-Phases 1-6c run in this process. The path phases 7-18 then run in three
+ 19. dataset: a TUM RGB-D-inertial directory exported by io/fixtures at
+     640x480 (1000 features, 8 levels) and 10 fps with 200 Hz IMU, run by
+     tools/run_rgbd_tum.main --imu over DATASET_FRAMES frames from disk on
+     the card (no vocabulary, as the JAX driver runs): OK, the SE3 ATE
+     < 6 cm, the shutdown file set; the atlas loaded into a fresh
+     SlamSystem with every MapState array equal and refused by one built
+     with the shipped vocabulary; DATASET_EXTRA frames in localization
+     mode (the KF count frozen, OK) and DATASET_EXTRA after it (KFs
+     again); the fused K1 once a frame; the decoder, frame times, the
+     atlas's size and save and load seconds.
+The inertial path (12) also writes its session before frame SESSION_AT,
+restores it into a fresh SlamSystem and drives the last frames again: the
+restored counts equal the saved ones, OK with the IMU initialized, the
+final position within 5 cm of the unbroken run's and the KF counts within
+2 (the JAX package's test_persistence bounds); it prints the file's size,
+the save and load seconds and the largest position gap.
+Phases 1-6c run in this process. The path phases 7-19 then run in three
 processes side by side on the same card (PATH_GROUPS; each a group of
 paths one after another, its output printed when it ends), and last, with
 the card to itself again, K4 is held to plain and timed at the two shapes
@@ -176,7 +192,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the twelve paths and nothing else, and K4's `path_shapes`) with
+over the thirteen paths and nothing else, and K4's `path_shapes`) with
 `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
@@ -252,6 +268,13 @@ INERTIAL_FRAMES = 360   # the inertial path: 12 s at 30 fps (IMU init ~1 s,
                         # VIBA1 at +5 s, VIBA2 at +10 s); 420 before the
                         # stereo paths came
 SYNC_WINDOW = (300, 330)   # inertial frames whose host syncs are counted
+SESSION_AT = 300   # the inertial path's session checkpoint, before frame 300
+# the dataset path: a TUM directory exported at 10 fps, the driver over its
+# first DATASET_FRAMES frames, then DATASET_EXTRA frames in localization
+# mode and DATASET_EXTRA after it
+DATASET_FRAMES = 60
+DATASET_EXTRA = 20
+DATASET_FPS = 10.0
 # the inertial path with GeoFlow's streams: 7.5 s at 30 fps, through VIBA1
 # (init ~1.1 s, VIBA1 at +5 s), its host syncs counted over GEOFLOW_SYNC;
 # 360 frames (VIBA2) took the whole script near the time limit, 240 before
@@ -1873,7 +1896,8 @@ def _count_syncs(fn):
     return out, n
 
 
-def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True):
+def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
+                    session=None):
     """Drive SlamSystem.track_rgbd_inertial over n_frames of the synthetic
     room's smooth trajectory at 30 fps with 200 Hz IMU samples (at most 32
     a frame) on m12 buffers pre-packed on the card, with `voc`; time every
@@ -1881,7 +1905,11 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True):
     with CUDA sync debugging) and every VI-BA, count the loop checks and
     relocalization attempts, print what the inertial phases report, gate
     on the IMU initialization and VIBA1 (and VIBA2 with `viba2`), and
-    return (slam, launches, K4 launches expected)."""
+    return (slam, launches, K4 launches expected). With `session` (a dict
+    with "at" and "path"), save_session is called before frame
+    session["at"] (timed), and the dict gets what _check_session needs:
+    the frames, their IMU samples and times, the map counts at the save,
+    and the unbroken run's position after every later frame."""
     dev = torch.device("cuda")
     seq = _room(cfg, FPS)
     ts = np.arange(n_frames) / FPS
@@ -1918,6 +1946,12 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True):
     by_mode, n_syncs = {}, 0
     try:
         for i in range(n_frames):
+            if session is not None and i == session["at"]:
+                t1 = time.perf_counter()
+                slam.save_session(session["path"])
+                session.update(save_s=time.perf_counter() - t1,
+                               saved=slam.map_stats(), positions=[],
+                               frames=(bufs, imu, ts))
             before = dict(slam.imu_modes)
 
             def step():
@@ -1937,6 +1971,8 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True):
                          if n != before.get(m, 0)), "init")
             if not sync[0] <= i < sync[1]:
                 by_mode.setdefault(mode, []).append(ms)
+            if session is not None and i >= session["at"]:
+                session["positions"].append(slam.current_pose_wc()[:3, 3])
     finally:
         LM.vi_ba_step = vi_ba_step
     launches = dict(kernels.launch_counts)
@@ -1989,13 +2025,67 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
     imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by window
     width, and the host syncs a frame over SYNC_WINDOW (CUDA sync
     debugging; those frames are left out of the times)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    session = dict(at=min(SESSION_AT, n_frames - 1),
+                   path=f"{tmp}/session")
     slam, launches, n_k4 = _drive_inertial("inertial", inertial_config(),
-                                           voc, n_frames)
+                                           voc, n_frames, session=session)
     v = slam.imu.body.v.cpu().numpy()
     if not (np.all(np.isfinite(v)) and np.linalg.norm(v) < 3.0):
         raise AssertionError(f"velocity {v}")
     _count(summary, "inertial", launches, n_frames,
            {"gated_hamming_search": None, "hamming_best2": n_k4})
+    try:
+        _check_session("inertial", slam, voc, session)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _check_session(tag, slam, voc, session):
+    """The session checkpoint at bench.py's capacities: a fresh SlamSystem
+    with the same config and vocabulary loads the file written at frame
+    session["at"] and drives the same frames to the end again. Gates, the
+    JAX package's (tests/test_persistence.py:98-110): the restored KF and
+    map-point counts equal to the saved ones, state OK and the IMU
+    initialized after the load, the final position within 5 cm of the
+    unbroken run's, the KF counts at the end within 2. Prints the file's
+    size, the save and load seconds and the largest per-frame position
+    gap."""
+    import os
+    bufs, imu, ts = session["frames"]
+    path = session["path"] + ".npz"
+    mb = os.path.getsize(path) / 2 ** 20
+    fresh = SlamSystem(slam.cfg, torch.device("cuda"), vocab=voc)
+    t1 = time.perf_counter()
+    fresh.load_session(session["path"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    restored = fresh.map_stats()
+    if (restored["n_kfs"], restored["n_mps"]) != (
+            session["saved"]["n_kfs"], session["saved"]["n_mps"]):
+        raise AssertionError(f"{tag} restored {restored}, saved "
+                             f"{session['saved']}")
+    if restored["state"] != "OK" or not fresh.imu.initialized:
+        raise AssertionError(f"{tag} restored state {restored['state']}, "
+                             f"IMU initialized {fresh.imu.initialized}")
+    gaps = []
+    for k, i in enumerate(range(session["at"], len(bufs))):
+        fresh.track_rgbd_inertial(bufs[i], None, *imu[i], ts[i])
+        gaps.append(float(np.linalg.norm(
+            fresh.current_pose_wc()[:3, 3] - session["positions"][k])))
+    end_a, end_b = slam.map_stats(), fresh.map_stats()
+    print(f"[{tag}] session at frame {session['at']} (k_max "
+          f"{slam.cfg.k_max}, m_max {slam.cfg.m_max}): {mb:.2f} MB, save "
+          f"{session['save_s']:.3f} s, load {load_s:.3f} s; restored "
+          f"{restored}; after {len(gaps)} frames again {end_b} (unbroken "
+          f"{end_a}); position gap max {max(gaps) * 100:.3f} cm, final "
+          f"{gaps[-1] * 100:.3f} cm")
+    if end_b["state"] != "OK" or not gaps[-1] < 0.05:
+        raise AssertionError(f"{tag} restored run ended {end_b}, "
+                             f"{gaps[-1]} m from the unbroken run")
+    if abs(end_a["n_kfs"] - end_b["n_kfs"]) > 2:
+        raise AssertionError(f"{tag} KF counts {end_a} vs {end_b}")
 
 
 def phase_inertial_geoflow(summary, voc,
@@ -2048,6 +2138,171 @@ def phase_inertial_geoflow(summary, voc,
            {"gated_hamming_search": None, "hamming_best2": n_k4,
             "lk_pyramid": n_frames - 1})
     _check_edge_icp(*measured[-1])
+
+
+def phase_dataset(summary, n_frames: int = DATASET_FRAMES):
+    """The TUM RGB-D-inertial disk-to-trajectory path: io/fixtures exports
+    DATASET_FRAMES + 2 x DATASET_EXTRA frames of the room at 640x480 (1000
+    features, 8 levels, the TUM fr1 size of the reference's RGB-D yamls) at
+    10 fps with 200 Hz IMU into a temporary directory, and
+    tools/run_rgbd_tum.main runs the first DATASET_FRAMES of them on the
+    card with --imu, --atlas and --out (no vocabulary: the driver's
+    arguments are the JAX driver's, which builds its SlamSystem without
+    one).
+    Gates: state OK, the SE3-aligned ATE against the written groundtruth
+    under the JAX driver test's 6 cm (tests/test_dataset_drivers.py), the
+    shutdown file set; the atlas loaded into a fresh SlamSystem on the card
+    with every MapState array equal to the saved map (n_maps one more, the
+    active map the new one), and refused by a SlamSystem built with the
+    shipped vocabulary (the checksums differ); then
+    localization mode on the driver's system over DATASET_EXTRA frames
+    from disk (the KF count frozen, OK on every frame) and DATASET_EXTRA
+    frames after it (KFs inserted again). Launch counts over all its
+    frames: the fused K1 once a frame, K2 launched, K4 once per
+    relocalization attempt. Prints the frame times, the decoder (native or
+    Python), the atlas's size and its save and load seconds."""
+    import os
+    import tempfile
+    from geoflowslam_tpu_torch.io import datasets as DS
+    from geoflowslam_tpu_torch.io import fixtures as FX
+    from geoflowslam_tpu_torch.io import trajectory as TR
+    from geoflowslam_tpu_torch.io.native_loader import FrameLoader
+    from geoflowslam_tpu_torch.io.yaml_compat import system_config_from_yaml
+    from geoflowslam_tpu_torch.state import serialize as SER
+    from geoflowslam_tpu_torch.tools import run_rgbd_tum
+
+    tag, extra = "dataset", DATASET_EXTRA
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        t0 = time.perf_counter()
+        seq, settings, assoc = FX.export_tum_rgbd(
+            f"{tmp}/seq", n_frames=n_frames + 2 * extra, fps=DATASET_FPS,
+            width=640, height=480, n_features=1000, n_levels=8,
+            device="cuda")
+        print(f"[{tag}] exported {n_frames + 2 * extra} TUM frames 640x480 "
+              f"at {DATASET_FPS:g} fps with 200 Hz IMU in "
+              f"{time.perf_counter() - t0:.2f} s")
+        attempts = []
+        reloc_attempt = SlamSystem._reloc_attempt
+
+        def counted(self, frame):
+            attempts.append(1)
+            return reloc_attempt(self, frame)
+        SlamSystem._reloc_attempt = counted
+        kernels.reset_launch_counts()
+        try:
+            res = run_rgbd_tum.main([
+                settings, seq, assoc, "--imu", "--max-frames",
+                str(n_frames), "--atlas", f"{tmp}/atlas", "--out",
+                f"{tmp}/out", "--device", "cuda"])
+            slam = res["slam"]
+            stats = slam.map_stats()
+            _check_atlas(tag, slam, f"{tmp}/atlas", settings, SER,
+                         system_config_from_yaml)
+            # localization mode, then mapping again, on the next frames
+            frames = DS.load_tum_associations(seq, assoc)
+            rows = DS.load_imu_txt(f"{seq}/imu/imu.txt")
+            loader = FrameLoader([f.rgb_path for f in frames[n_frames:]],
+                                 [f.depth_path for f in frames[n_frames:]],
+                                 height=480, width=640)
+            slam.activate_localization_mode()
+            loc_kfs, loc_states = [], []
+            for k, gray, depth in loader:
+                i = n_frames + k
+                if k == extra:
+                    slam.deactivate_localization_mode()
+                slam.track_rgbd_inertial(gray, depth, *DS.imu_between(
+                    rows, frames[i - 1].time, frames[i].time,
+                    slam.cfg.imu.max_samples_per_frame), frames[i].time)
+                loc_kfs.append(slam.map_stats()["n_kfs"])
+                loc_states.append(slam.state.name)
+            loader.close()
+            torch.cuda.synchronize()
+        finally:
+            SlamSystem._reloc_attempt = reloc_attempt
+        launches = dict(kernels.launch_counts)
+        ms = np.asarray(res["frame_ms"][1:])
+        # the SE3-aligned ATE on the exported files, as the JAX driver
+        # test evaluates them (tests/test_dataset_drivers.py)
+        traj = TR.load_trajectory_tum(f"{tmp}/out/CameraTrajectory.txt")
+        ate = ate_rmse(traj, TR.load_trajectory_tum(
+            f"{seq}/groundtruth.txt"))["ate_rmse"]
+        print(f"[{tag}] run_rgbd_tum --imu over {n_frames} frames from disk:"
+              f" {stats}, {len(traj)} poses, ATE {ate * 100:.3f} cm; "
+              f"decoder native: {str(res['native']).lower()}; ms/frame "
+              f"median {np.median(ms):.2f}, p90 {np.percentile(ms, 90):.2f};"
+              f" {len(attempts)} relocalization attempts")
+        if stats["state"] != "OK" or not ate < 0.06 or len(traj) < 0.9 * (
+                n_frames):
+            raise AssertionError(f"{tag}: {stats}, ATE {ate} m, "
+                                 f"{len(traj)} poses")
+        names = set(os.listdir(f"{tmp}/out"))
+        want = {"CameraTrajectory.txt", "KeyFrameTrajectory.txt", "map.html",
+                "ExecTimeMean.txt", "LocalMapTimeStats.txt", "LBA_Stats.txt",
+                "SessionInfo.txt", "TrackTimeCost.txt"}
+        if not want <= names:
+            raise AssertionError(f"{tag}: shutdown wrote {sorted(names)}")
+        n_kfs = stats["n_kfs"]
+        print(f"[{tag}] localization mode over {extra} frames: KFs "
+              f"{loc_kfs[:extra]}, states {sorted(set(loc_states[:extra]))};"
+              f" then {extra} frames mapping: KFs {n_kfs} -> {loc_kfs[-1]}")
+        if (set(loc_kfs[:extra]) != {n_kfs}
+                or set(loc_states[:extra]) != {"OK"}):
+            raise AssertionError(f"{tag}: localization mode KFs {loc_kfs}, "
+                                 f"states {loc_states}")
+        if not loc_kfs[-1] > n_kfs or loc_states[-1] != "OK":
+            raise AssertionError(f"{tag}: no KF after localization mode "
+                                 f"({loc_kfs}, {loc_states})")
+        _count(summary, tag, launches, n_frames + 2 * extra,
+               {"gated_hamming_search": None,
+                "hamming_best2": len(attempts)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _check_atlas(tag, slam, path, settings, SER, config_from_yaml):
+    """A fresh SlamSystem on the card loads the atlas with every MapState
+    array equal to the saved map but the Atlas bookkeeping that
+    create_new_map moves on (n_maps one more, the new active map, the
+    IMU flags cleared); a SlamSystem with the shipped vocabulary refuses
+    the atlas, which was saved without one. Prints the size and the save
+    and load seconds."""
+    import os
+    voc = slam.vocab
+    t1 = time.perf_counter()
+    slam.save_atlas(path + "_timed")
+    save_s = time.perf_counter() - t1
+    cfg, _ = config_from_yaml(settings, sensor="rgbd")
+    fresh = SlamSystem(cfg, torch.device("cuda"), vocab=voc)
+    t1 = time.perf_counter()
+    fresh.load_atlas(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    saved, got = SER.ms_to_host(slam.ms), SER.ms_to_host(fresh.ms)
+    moved = ("active_map", "n_maps", "imu_initialized", "viba1_done",
+             "viba2_done")
+    for f, a in saved.items():
+        if f not in moved and not np.array_equal(a, got[f]):
+            raise AssertionError(f"{tag}: atlas field {f} differs")
+    if int(got["n_maps"]) != int(saved["n_maps"]) + 1 or int(
+            got["active_map"]) != int(saved["n_maps"]):
+        raise AssertionError(f"{tag}: n_maps {got['n_maps']} after loading "
+                             f"{saved['n_maps']}")
+    other = V.default_vocabulary("cuda")
+    try:
+        SlamSystem(cfg, torch.device("cuda"), vocab=other).load_atlas(path)
+    except ValueError as e:
+        refused = "checksum" in str(e)
+    else:
+        refused = False
+    if not refused:
+        raise AssertionError(f"{tag}: the shipped vocabulary was not "
+                             f"refused")
+    print(f"[{tag}] atlas {os.path.getsize(path + '.npz') / 2 ** 20:.2f} MB"
+          f" (k_max {cfg.k_max}, m_max {cfg.m_max}), save {save_s:.3f} s, "
+          f"load {load_s:.3f} s; every array equal, n_maps "
+          f"{int(saved['n_maps'])} -> {int(got['n_maps'])}, refused with "
+          f"the shipped vocabulary")
 
 
 def _to(x, dev):
@@ -2116,12 +2371,13 @@ def _check_edge_icp(prob, args):
 # 1200 s limit on a slow host (the hosts' pace varies ~1.7x from run to
 # run: the paths one after another took 1014 s on one, over 1300 s on
 # another). Each group is about a third of the work (hard, then the other
-# vocabulary paths and the short RGB-D ones; inertial and the monocular
-# paths; inertial_geoflow and the stereo paths and g1). The kernels are
+# vocabulary paths and the short RGB-D ones; inertial, the monocular
+# paths and the dataset path, which joined the group with the least time;
+# inertial_geoflow and the stereo paths and g1). The kernels are
 # timed before the paths start, and the monocular path's K4 launches after
 # they end, with the card to themselves.
 PATH_GROUPS = (("hard", "merge", "of_icp", "rgbd", "reloc"),
-               ("inertial", "mono_inertial", "mono"),
+               ("inertial", "mono_inertial", "mono", "dataset"),
                ("inertial_geoflow", "stereo_inertial", "g1",
                 "stereo_fisheye"))
 VOCAB_PATHS = ("reloc", "merge", "hard", "inertial", "inertial_geoflow")

@@ -5,12 +5,8 @@ MapState, TrackResult, Vocabulary, KFDatabase) or anything else with the
 same fields whose leaves numpy can read; nothing here imports the JAX
 package. Descriptor words (uint32 in the reference) become int32 tensors
 holding the same bits.
-`load_atlas` reads the npz that geoflowslam_tpu/state/serialize.py::
-save_atlas writes, the map a reference run carries across.
 """
 from __future__ import annotations
-
-import json
 
 import numpy as np
 import torch
@@ -21,8 +17,6 @@ from geoflowslam_tpu_torch.retrieval.kf_database import KFDatabase
 from geoflowslam_tpu_torch.retrieval.vocab import Vocabulary
 from geoflowslam_tpu_torch.state.frame import FrameData
 from geoflowslam_tpu_torch.state.map_state import MapState
-
-ATLAS_FORMAT_VERSION = 1
 
 
 def to_tensor(x, device) -> torch.Tensor:
@@ -73,15 +67,3 @@ def vocabulary(voc, device) -> Vocabulary:
 
 def kf_database(db, device) -> KFDatabase:
     return _convert(KFDatabase, db, device)
-
-
-def load_atlas(path: str, device):
-    """Read an atlas npz written by the reference's save_atlas.
-    Returns (MapState, extra metadata dict)."""
-    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        meta = json.loads(bytes(data["__meta__"]).decode())
-        if meta["format_version"] != ATLAS_FORMAT_VERSION:
-            raise ValueError(f"atlas format {meta['format_version']} != "
-                             f"{ATLAS_FORMAT_VERSION}")
-        fields = {f: data[f] for f in meta["fields"]}
-    return map_state(fields, device), meta.get("extra", {})

@@ -217,6 +217,8 @@ def correct_loop(ms: M.MapState, cur: int, cand: int, s, rot, t,
 class LoopCloser:
     """Host-side loop-closing stage (one call per new KF)."""
 
+    GEN_SEED = 77    # the RANSAC generator's seed
+
     def __init__(self, vocab: V.Vocabulary, k_max: int,
                  cfg: LoopConfig = LoopConfig(),
                  map_cfg: Optional[MappingConfig] = None, *, device):
@@ -227,7 +229,7 @@ class LoopCloser:
         self.n_loops = 0
         self.n_merges = 0
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(77)
+        self.gen.manual_seed(self.GEN_SEED)
         self._map_cfg = map_cfg if map_cfg is not None else MappingConfig()
         self.n_cand = 3
         self.k_max = k_max

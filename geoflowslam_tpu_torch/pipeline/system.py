@@ -140,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import warnings
 from typing import Optional
 
@@ -149,6 +150,7 @@ import torch
 from geoflowslam_tpu_torch.config import LidarConfig, SystemConfig
 from geoflowslam_tpu_torch.imu import preintegration as pre
 from geoflowslam_tpu_torch.io import feed_codec as FC
+from geoflowslam_tpu_torch.io import trajectory as TR
 from geoflowslam_tpu_torch.math import cameras as CAM
 from geoflowslam_tpu_torch.math import lie
 from geoflowslam_tpu_torch.ops import gicp as G
@@ -167,9 +169,11 @@ from geoflowslam_tpu_torch.retrieval import kf_database as DBD
 from geoflowslam_tpu_torch.retrieval import vocab as Vv
 from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.state import map_state as M
+from geoflowslam_tpu_torch.state import serialize as S
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
 from geoflowslam_tpu_torch.utils.timers import StageTimers
+from geoflowslam_tpu_torch.viewer.html_export import export_html
 
 
 class TrackingState(enum.Enum):
@@ -185,8 +189,7 @@ def check_config(cfg: SystemConfig) -> None:
     odometry, relocalization and loop closing; monocular without the four
     GeoFlow streams)."""
     mono = cfg.sensor == "mono"
-    off = {"local_ba_every_kf=False": cfg.local_ba_every_kf,
-           f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo",
+    off = {f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo",
                                                     "mono")}
     off.update({f"sensor='mono' with {name}": not (mono and on)
                 for name, on in (("use_of", cfg.use_of),
@@ -254,7 +257,6 @@ class SlamSystem:
         # RANSAC generator, and device-side counters read only on request
         self.last_frame: Optional[FrameData] = None
         self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(0)
         self._of_last = torch.zeros(2, dtype=torch.long, device=dev)
         self._of_total = torch.zeros(2, dtype=torch.long, device=dev)
         self._icp_accepted = torch.zeros((), dtype=torch.long, device=dev)
@@ -272,7 +274,6 @@ class SlamSystem:
             DBD.KFDatabase.create(cfg.k_max, self.vocab.n_words, dev)
             if self.vocab is not None and self.loop_closer is None else None)
         self._reloc_gen = torch.Generator(device=dev)
-        self._reloc_gen.manual_seed(1234)
         self.n_reloc = 0              # relocalizations adopted
         self.n_recovered = 0          # frames adopted by recover_frame
         # KF-stall watchdog, per-stage wall times, and with
@@ -320,11 +321,13 @@ class SlamSystem:
         # since the first frame)
         self._pending_init_frame = None
         self._init_gen = torch.Generator(device=dev)
-        self._init_gen.manual_seed(1234)
         self.n_init_attempts = 0
         self.mono_init_info: Optional[dict] = None
         self.n_triangulated: list = []    # points per monocular KF (device)
         self._last_scale_ref = -1e18
+        self._reseed_generators()
+        # localization mode: tracking only, the map frozen
+        self._localization_only = False
 
     # -- public API ----------------------------------------------------------
 
@@ -405,14 +408,16 @@ class SlamSystem:
         """One frame: the time guards, then initialization, the fused
         inertial step or the (staged) frame step. `make_frame()` builds the
         frame; `staged` sends every frame through the staged step (the
-        stereo and monocular entry points)."""
+        stereo and monocular entry points; every entry point in
+        localization mode)."""
         self._t_rel(timestamp)
         started = (self.n_frames > 0
                    and self.state != TrackingState.NOT_INITIALIZED)
-        staged = staged or (self.imu is not None and (
-            self.cfg.record_reproj_err
-            or (self.vocab is None
-                and self.state == TrackingState.RECENTLY_LOST)))
+        staged = staged or self._localization_only or (
+            self.imu is not None and (
+                self.cfg.record_reproj_err
+                or (self.vocab is None
+                    and self.state == TrackingState.RECENTLY_LOST)))
         if (started and self.imu is not None and not staged
                 and self._imu_guard(timestamp)):
             return self.current_pose_wc()
@@ -652,7 +657,103 @@ class SlamSystem:
         """System::ResetActiveMap: reinitialize in a fresh Atlas map; the
         KF clouds, EdgeICP measurements and local cloud map of the old one
         go."""
-        self.ms = M.create_new_map(self.ms)
+        self._drop_map(M.create_new_map(self.ms))
+
+    def reset(self):
+        """System::Reset: wipe the whole Atlas and restart, the IMU tracker
+        anew. As in the JAX package, the BoW entries of the loop closer's or
+        the reloc store's database stay as they are; a running asynchronous
+        global BA is dropped with the map it was solving."""
+        c = self.cfg
+        self._drop_map(M.create(c.k_max,
+                                c.frame.orb.n_features + c.frame.n_of_slots,
+                                c.m_max, self.device))
+        self.last_frame = None
+        if self._gba is not None:
+            self._gba.abort()
+        if self.imu is not None:
+            self.imu = IN.InertialTracker(c.imu, self.device)
+
+    def activate_localization_mode(self):
+        """System::ActivateLocalizationMode: tracking only, the map frozen.
+        Every frame takes the staged step, no keyframe is inserted (so no
+        mapping, BoW entry or loop check) and the KF-stall watchdog is
+        quiet."""
+        self._localization_only = True
+
+    def deactivate_localization_mode(self):
+        self._localization_only = False
+
+    def save_atlas(self, path: str):
+        """System::SaveAtlas: the map to <path>.npz (state/serialize.py,
+        the JAX package's format) with the vocabulary checksum."""
+        S.save_atlas(path, self.ms, self.vocab,
+                     extra={"sensor": self.cfg.sensor,
+                            "n_frames": self.n_frames,
+                            "time_base": self.time_base or 0.0})
+
+    def load_atlas(self, path: str) -> dict:
+        """System::LoadAtlas: restore the map onto the system's device (the
+        vocabulary checksum must match) with a new active map on top for
+        the ongoing session, as the reference does; tracking starts
+        NOT_INITIALIZED on the saved session's time base. Returns the
+        atlas's extra metadata."""
+        ms, extra = S.load_atlas(path, self.vocab, device=self.device)
+        self.ms = M.create_new_map(ms)
+        self.state = TrackingState.NOT_INITIALIZED
+        tb = extra.get("time_base")
+        if tb is not None:
+            self.time_base = float(tb)
+        return extra
+
+    def save_session(self, path: str):
+        """Checkpoint the whole session (map, tracking, IMU, BoW database)
+        so that `load_session` continues it mid-stream
+        (state/serialize.save_session)."""
+        S.save_session(path, self)
+
+    def load_session(self, path: str) -> dict:
+        """Restore a `save_session` checkpoint (the same SystemConfig
+        capacities) and continue tracking from the checkpointed frame."""
+        return S.load_session(path, self)
+
+    def shutdown(self, save_dir: Optional[str] = None):
+        """System::Shutdown: with `save_dir`, write the timers' files
+        (utils/timers.write_all with the session info), CameraTrajectory.txt
+        and KeyFrameTrajectory.txt (TUM format, absolute timestamps),
+        map.html, globalMap.pcd with use_lidar, and
+        Frame2FrameReprojErr.txt / Frame2MapReprojErr.txt when
+        record_reproj_err filled them."""
+        if save_dir is None:
+            return
+        os.makedirs(save_dir, exist_ok=True)
+        self.timers.write_all(save_dir, {
+            "sensor": self.cfg.sensor, "n_frames": self.n_frames,
+            "n_lost": self.n_lost, **self.map_stats()})
+        if self.lidar_map is not None:
+            self.global_map.save_pcd(os.path.join(save_dir, "globalMap.pcd"))
+        traj = self.trajectory
+        TR.save_trajectory_tum(os.path.join(save_dir, "CameraTrajectory.txt"),
+                               traj)
+        TR.save_trajectory_tum(
+            os.path.join(save_dir, "KeyFrameTrajectory.txt"),
+            TR.keyframe_trajectory(self.ms, time_base=self.time_base or 0.0))
+        export_html(self.ms, traj, self.cur_rot, self.cur_t,
+                    path=os.path.join(save_dir, "map.html"))
+        for name, rows in (("Frame2FrameReprojErr.txt", self.f2f_reproj),
+                           ("Frame2MapReprojErr.txt", self.f2m_reproj)):
+            if rows:
+                with open(os.path.join(save_dir, name), "w") as f:
+                    f.write("#t mean_err_px n_inliers\n")
+                    for t, e, n in rows:
+                        f.write(f"{t:.6f} {e:.4f} {n}\n")
+
+    # -- internals -------------------------------------------------------------
+
+    def _drop_map(self, ms: M.MapState):
+        """Reinitialize on `ms`: the KF clouds, EdgeICP measurements and
+        local cloud map of the old map go."""
+        self.ms = ms
         self._kf_clouds.clear()
         self._kf_icp_rel.clear()
         self._last_kf_slot = None
@@ -661,7 +762,14 @@ class SlamSystem:
         self._pending_init_frame = None
         self._restart()
 
-    # -- internals -------------------------------------------------------------
+    def _reseed_generators(self):
+        """The RANSAC and OF draws' generators at their constructors' seeds
+        (also after a restored session: the draws are not checkpointed)."""
+        self._gen.manual_seed(0)
+        self._reloc_gen.manual_seed(1234)
+        self._init_gen.manual_seed(1234)
+        if self.loop_closer is not None:
+            self.loop_closer.gen.manual_seed(LoopCloser.GEN_SEED)
 
     def _restart(self):
         self.state = TrackingState.NOT_INITIALIZED
@@ -673,9 +781,11 @@ class SlamSystem:
     def _can_fuse(self) -> bool:
         """The reference's choice of its fused frame step for a frame of the
         RGB-D entry points: tracking OK, or RECENTLY_LOST with a
-        vocabulary; without record_reproj_err; with bindings to track from;
-        with OF or ICP, a previous frame."""
+        vocabulary; without record_reproj_err; outside localization mode;
+        with bindings to track from; with OF or ICP, a previous frame."""
         if (self.cfg.use_of or self.cfg.use_icp) and self.last_frame is None:
+            return False
+        if self._localization_only:
             return False
         healthy = self.state == TrackingState.OK
         recovering = (self.state == TrackingState.RECENTLY_LOST
@@ -1251,7 +1361,10 @@ class SlamSystem:
 
     def _kf_watchdog(self, timestamp: float):
         """Count and warn, at most every 10 s, when no keyframe has landed
-        for more than 10 s while tracking holds."""
+        for more than 10 s while tracking holds (never in localization
+        mode)."""
+        if self._localization_only:
+            return
         if (timestamp - self._last_kf_time > 10.0
                 and timestamp - self._last_stall_warn > 10.0):
             self._last_stall_warn = timestamp
@@ -1318,7 +1431,10 @@ class SlamSystem:
     def _need_new_keyframe(self, n_inliers: int,
                            timestamp: Optional[float] = None) -> bool:
         """NeedNewKeyFrame essentials; with an IMU a KF at least every
-        0.5 s keeps the preintegration segments short."""
+        0.5 s keeps the preintegration segments short. None in localization
+        mode."""
+        if self._localization_only:
+            return False
         if (self.imu is not None and self.frames_since_kf >= 1
                 and timestamp - self._last_kf_time >= 0.5):
             return True
@@ -1336,9 +1452,11 @@ class SlamSystem:
                          fused_kf: bool = False):
         """A KF through the mapping step (the reference's fused KF step),
         or its staged KF step until the IMU is initialized and, with
-        use_lidar, for the KF of a tracked frame (`fused_kf` False)."""
+        use_lidar or without local_ba_every_kf, for the KF of a tracked
+        frame (`fused_kf` False)."""
         if ((self.imu is not None and not self.imu.initialized)
-                or (self.cfg.use_lidar and not fused_kf)
+                or ((self.cfg.use_lidar or not self.cfg.local_ba_every_kf)
+                    and not fused_kf)
                 or self.cfg.sensor == "mono"):
             return self._insert_keyframe_staged(frame, timestamp, res,
                                                 n_inliers)
@@ -1470,7 +1588,8 @@ class SlamSystem:
         10) or the VI state stamped on the KF, with a monocular camera the
         triangulation of new points and the ScaleRefinement cadence, local
         BA (VI-BA once the IMU is initialized; a monocular VIBA1 or VIBA2
-        re-runs the initialization first), duplicate fusion, point
+        re-runs the initialization first; without local_ba_every_kf none,
+        and the tracked pose and motion model stay), duplicate fusion, point
         statistics, point and KF culling, the cloud into the local and
         global maps (use_lidar) at the optimized KF pose, loop detection;
         tracking goes on from the KF's pose and its live bindings, without
@@ -1517,28 +1636,8 @@ class SlamSystem:
                 self._last_scale_ref = t_rel
                 self.ms = imu.scale_refinement(self.ms)
                 self._reanchor_on_imu_transform(slot, imu.body is not None)
-        with self.timers.time("LBA"):
-            slots = []
-            if (imu is not None and imu.initialized
-                    and len(imu.kf_order) >= 4):
-                kw, transition = self._viba_width(timestamp)
-                if transition and mono:
-                    # VIBA1 / VIBA2 re-run InitializeIMU over the grown
-                    # chain before the wide VI-BA
-                    self.ms, did = imu.reinitialize(self.ms, scale_free=True)
-                    if did:
-                        self._reanchor_on_imu_transform(slot, True)
-                slots = imu.contiguous_window(kw)
-            if len(slots) >= 3:
-                self.ms, _ = LM.vi_ba_step(self.ms, self._vi_window(slots, kw),
-                                           self.mcfg)
-            else:
-                self.ms, _ = LM.local_ba_step(self.ms, slot, self.mcfg)
-        # BA moved the map: re-anchor on the optimized KF
-        self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
-        self.has_vel = False
-        if imu is not None and imu.initialized:
-            self._rederive_body()
+        if self.cfg.local_ba_every_kf:
+            self._staged_ba(slot, timestamp, mono)
         self.ms = LM.fuse_duplicates(self.ms, slot, self.mcfg)
         self.ms = LM.refresh_point_stats(self.ms, slot)
         self.ms = M.cull_map_points(self.ms)
@@ -1566,6 +1665,35 @@ class SlamSystem:
             (obs >= 0) & self.ms.mp_valid[torch.clamp_min(obs, 0).long()],
             obs, M.NO_MP)
         self.local_masks = None
+
+    def _staged_ba(self, slot: int, timestamp: float, mono: bool):
+        """The staged KF step's local BA, or VI-BA over the temporal window
+        once the IMU is initialized (a monocular VIBA1 or VIBA2 re-runs the
+        initialization first); then the tracked state re-anchors on the
+        optimized KF."""
+        imu = self.imu
+        with self.timers.time("LBA"):
+            slots = []
+            if (imu is not None and imu.initialized
+                    and len(imu.kf_order) >= 4):
+                kw, transition = self._viba_width(timestamp)
+                if transition and mono:
+                    # VIBA1 / VIBA2 re-run InitializeIMU over the grown
+                    # chain before the wide VI-BA
+                    self.ms, did = imu.reinitialize(self.ms, scale_free=True)
+                    if did:
+                        self._reanchor_on_imu_transform(slot, True)
+                slots = imu.contiguous_window(kw)
+            if len(slots) >= 3:
+                self.ms, _ = LM.vi_ba_step(self.ms, self._vi_window(slots, kw),
+                                           self.mcfg)
+            else:
+                self.ms, _ = LM.local_ba_step(self.ms, slot, self.mcfg)
+        # BA moved the map: re-anchor on the optimized KF
+        self.cur_rot, self.cur_t = self.ms.kf_rot[slot], self.ms.kf_t[slot]
+        self.has_vel = False
+        if imu is not None and imu.initialized:
+            self._rederive_body()
 
     def _try_imu_init(self, slot: int, timestamp: float):
         """The IMU initialization attempt at a new KF; on success VI-BA over

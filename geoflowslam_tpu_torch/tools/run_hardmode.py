@@ -3,19 +3,24 @@ geoflowslam_tpu_torch.io.synthetic.HardSyntheticSequence (loop revisits
 every 40 s, fast-rotation bursts, texture-poor windows) through
 SlamSystem.track_rgbd (--mode rgbd) or track_rgbd_inertial with the
 sequence's 200 Hz IMU samples (--mode rgbd_inertial, ImuConfig()) on the
-packed m12 feed, with the configuration of the JAX package's hard-mode
-script (examples/run_hardmode.py).
+packed m12 feed, or track_monocular on the gray images (--mode mono, the
+raw feed; ATE with a Sim3 alignment), with the configuration of the JAX
+package's hard-mode script (examples/run_hardmode.py).
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 geoflowslam_tpu_torch/tools/run_hardmode.py --mode rgbd \
         [--frames 2000] [--out results_hard_torch/rgbd] [--loop] \
-        [--of] [--icp] [--lidar] [--reference results_hard/rgbd]
+        [--of] [--icp] [--lidar] [--reference results_hard/rgbd] \
+        [--device cuda|cpu] [--render-device cuda|cpu]
 
-The sequence is rendered on the device in batches, packed there
+The sequence is rendered on the device (--render-device, by default
+--device) in batches, packed there
 (io/feed_codec.pack_m12_torch) and kept in host memory with the IMU
 samples of every frame gap (HardSyntheticSequence.imu_between); only the
-track call is timed, with a device sync after each frame. Writes to --out:
+track call is timed, with a device sync after each frame. The renderer's
+float32 arithmetic differs by device, so a card run and a CPU run see the
+same input bytes only with the same --render-device. Writes to --out:
   hardmode.json       ATE/RPE against the analytic ground truth, the map,
                       per-KF mapping cost (the New_KF stage timer, early and
                       late halves), KF-frame wall time, loops, merges,
@@ -25,7 +30,8 @@ track call is timed, with a device sync after each frame. Writes to --out:
                       imu_modes (frames per imu_mode), vi_accepted,
                       imu_init_time_s (since the first frame),
                       viba1_done and viba2_done; with --lidar
-                      global_map_points;
+                      global_map_points; render_device and input_sha1
+                      (SHA-1 of every frame buffer and IMU sample);
   frames_diag.jsonl   [frame, seconds, state, n_lost] per frame;
   inliers_diag.jsonl  [t, motion-model inliers, local-map inliers] per frame;
   CameraTrajectory.txt  the exported trajectory, TUM format (t tx ty tz qx
@@ -34,7 +40,8 @@ Both diagnostics are rewritten every 100 frames, so a run cut short leaves
 how far it got. --reference DIR prints the accuracy and map numbers of a
 hardmode.json of the JAX package beside this run's, with the frames where
 either side is not OK, the first frame where the states differ, the first
-frame where the local-map inlier counts part by more than 30%, each
+frame where the inlier counts differ at all and the first where the
+local-map inlier counts part by more than 30%, each
 side's frames under min_inliers_ok local-map inliers, the port's
 frames that were OK all the same (taken by the recovery step, or
 ICP-carried), and the two exported trajectories' distance per frame.
@@ -44,6 +51,7 @@ compares an existing --out with --reference without running.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -60,6 +68,7 @@ from geoflowslam_tpu_torch.config import (FrameConfig, ImuConfig,  # noqa
                                           LoopConfig, OrbConfig, SystemConfig)
 from geoflowslam_tpu_torch.eval.ate import ate_rmse, rpe  # noqa: E402
 from geoflowslam_tpu_torch.io import feed_codec as FC  # noqa: E402
+from geoflowslam_tpu_torch.io import trajectory as TR  # noqa: E402
 from geoflowslam_tpu_torch.io.synthetic import (  # noqa: E402
     Camera, HardSyntheticSequence, SyntheticWorld, contrast_schedule,
     hard_trajectory)
@@ -73,21 +82,22 @@ MIN_OK = SystemConfig().min_inliers_ok
 
 def make_config(width: int, height: int, features: int, loop: bool,
                 of: bool, icp: bool, imu: bool = False,
-                lidar: bool = False) -> SystemConfig:
-    """The JAX hard-mode script's RGB-D (with `imu`: RGB-D-inertial)
-    configuration."""
+                lidar: bool = False, mono: bool = False) -> SystemConfig:
+    """The JAX hard-mode script's RGB-D (with `imu`: RGB-D-inertial; with
+    `mono`: monocular on the raw feed) configuration."""
     fx = width * 0.625
     orb = OrbConfig(n_features=features, n_levels=8 if width >= 640 else 4,
                     height=height, width=width)
     fc = FrameConfig(orb=orb, bf=fx * 0.1, lk_levels=4, cloud_stride=4,
                      cloud_max_pts=4096, depth_map_factor=1.0,
-                     n_of_slots=256 if of else 0, feed_codec="m12")
+                     n_of_slots=256 if of else 0,
+                     feed_codec="raw" if mono else "m12")
     return SystemConfig(fx=fx, fy=fx, cx=width / 2, cy=height / 2,
                         bf=fx * 0.1, frame=fc,
                         loop=LoopConfig() if loop else None,
                         imu=ImuConfig() if imu else None,
                         use_of=of, use_icp=icp, use_lidar=lidar, k_max=128,
-                        m_max=32768)
+                        m_max=32768, sensor="mono" if mono else "rgbd")
 
 
 def ground_truth(seq: HardSyntheticSequence, ts: np.ndarray):
@@ -107,9 +117,10 @@ def ground_truth(seq: HardSyntheticSequence, ts: np.ndarray):
 
 @torch.no_grad()
 def prerender(seq: HardSyntheticSequence, rot_cw, t_cw, ts,
-              batch: int = 32) -> list:
-    """m12 buffers of every frame: rendered and packed on the world's
-    device, copied to the host once per `batch` frames."""
+              batch: int = 32, gray: bool = False) -> list:
+    """m12 buffers of every frame (with `gray`: the float32 gray images):
+    rendered, contrast-scheduled and packed on the world's device, copied
+    to the host once per `batch` frames."""
     dev = seq.world.device
     out = []
     for i in range(0, len(ts), batch):
@@ -117,8 +128,8 @@ def prerender(seq: HardSyntheticSequence, rot_cw, t_cw, ts,
         for j in range(i, min(i + batch, len(ts))):
             g, d = seq.world.render(torch.from_numpy(rot_cw[j]).to(dev),
                                     torch.from_numpy(t_cw[j]).to(dev))
-            c = contrast_schedule(ts[j], seq.period)
-            bufs.append(FC.pack_m12_torch(110.0 + (g - 110.0) * c, d))
+            g = 110.0 + (g - 110.0) * contrast_schedule(ts[j], seq.period)
+            bufs.append(g if gray else FC.pack_m12_torch(g, d))
         out.extend(torch.stack(bufs).cpu().numpy())
     return out
 
@@ -130,30 +141,6 @@ def _halves(v):
         return float("nan"), float("nan")
     half = len(v) // 2
     return float(np.mean(v[1:half])), float(np.mean(v[half:]))
-
-
-def _quat_xyzw(r: np.ndarray) -> np.ndarray:
-    """Unit quaternion (x, y, z, w), w >= 0, of a rotation matrix."""
-    m = np.asarray(r, np.float64)
-    k = np.array([
-        [m[0, 0] - m[1, 1] - m[2, 2], 0.0, 0.0, 0.0],
-        [m[0, 1] + m[1, 0], m[1, 1] - m[0, 0] - m[2, 2], 0.0, 0.0],
-        [m[0, 2] + m[2, 0], m[1, 2] + m[2, 1], m[2, 2] - m[0, 0] - m[1, 1],
-         0.0],
-        [m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1],
-         m[0, 0] + m[1, 1] + m[2, 2]]]) / 3.0
-    w, v = np.linalg.eigh(k)
-    q = v[:, np.argmax(w)]
-    return q if q[3] >= 0 else -q
-
-
-def write_tum(path: str, traj) -> None:
-    """[(t, Twc 4x4)] as TUM lines: t tx ty tz qx qy qz qw."""
-    with open(path, "w") as f:
-        for t, m in traj:
-            q = _quat_xyzw(m[:3, :3])
-            f.write(f"{t:.6f} " + " ".join(f"{x:.7f}" for x in (
-                *m[:3, 3], *q)) + "\n")
 
 
 def read_tum(path: str) -> dict:
@@ -195,21 +182,31 @@ def run(args) -> dict:
               file=sys.stderr)
     w, h = args.width, args.height
     inertial = args.mode == "rgbd_inertial"
+    mono = args.mode == "mono"
     cfg = make_config(w, h, args.features, args.loop, args.of, args.icp,
-                      imu=inertial, lidar=args.lidar)
+                      imu=inertial, lidar=args.lidar, mono=mono)
     cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=w,
                  height=h)
-    seq = HardSyntheticSequence(SyntheticWorld(cam, device=dev),
+    rdev = torch.device(args.render_device or args.device)
+    seq = HardSyntheticSequence(SyntheticWorld(cam, device=rdev),
                                 fps=args.fps)
     ts_all = np.arange(args.frames) / args.fps
     rot_cw, t_cw, twc_gt = ground_truth(seq, ts_all)
     t0 = time.perf_counter()
-    bufs = prerender(seq, rot_cw, t_cw, ts_all)
-    print(f"pre-rendered {args.frames} m12 frames {w}x{h} in "
+    bufs = prerender(seq, rot_cw, t_cw, ts_all, gray=mono)
+    print(f"pre-rendered {args.frames} {'gray' if mono else 'm12'} frames "
+          f"{w}x{h} in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     imu = [None] + [tuple(x.cpu().numpy() for x in seq.imu_between(
         ts_all[i - 1], ts_all[i], cfg.imu.max_samples_per_frame))
         for i in range(1, args.frames)] if inertial else None
+
+    digest = hashlib.sha1()     # the input bytes, to tell runs' inputs apart
+    for b in bufs:
+        digest.update(np.ascontiguousarray(b).tobytes())
+    for x in (imu or [None])[1:]:
+        for a in x:
+            digest.update(np.ascontiguousarray(a).tobytes())
 
     slam = SlamSystem(cfg, dev, vocab=default_vocabulary(dev))
     os.makedirs(args.out, exist_ok=True)
@@ -219,7 +216,9 @@ def run(args) -> dict:
     for i in range(args.frames):
         t_abs = args.t0 + ts_all[i]
         tk0 = time.perf_counter()
-        if inertial and i > 0:
+        if mono:
+            slam.track_monocular(bufs[i], t_abs)
+        elif inertial and i > 0:
             slam.track_rgbd_inertial(bufs[i], None, *imu[i], t_abs)
         else:
             slam.track_rgbd(bufs[i], None, t_abs)
@@ -252,8 +251,9 @@ def run(args) -> dict:
 
     st = slam.map_stats()
     traj = slam.trajectory
-    write_tum(os.path.join(args.out, "CameraTrajectory.txt"), traj)
-    m = ate_rmse(traj, gt)
+    TR.save_trajectory_tum(os.path.join(args.out, "CameraTrajectory.txt"),
+                           traj)
+    m = ate_rmse(traj, gt, with_scale=mono)
     r = rpe(traj, gt)
     early, late = _halves(slam.timers.samples.get("New_KF", []))
     wall_early, wall_late = _halves(kf_wall)
@@ -275,7 +275,8 @@ def run(args) -> dict:
            "ms_per_frame_p90": float(np.percentile(steady, 90)),
            "device": (torch.cuda.get_device_name(dev) if cuda
                       else "cpu"),
-           "card": _card() if cuda else "cpu"}
+           "card": _card() if cuda else "cpu",
+           "render_device": str(rdev), "input_sha1": digest.hexdigest()}
     if args.lidar:
         out.update(global_map_points=len(slam.global_map.points()))
     if inertial:
@@ -326,6 +327,8 @@ def compare(port_dir: str, ref_dir: str, t0: float, fps: float) -> dict:
         os.path.join(ref_dir, "inliers_diag.jsonl"))}
     common = sorted(set(ip) & set(ir))
     frame = lambda t: int(round((t - t0) * fps))           # noqa: E731
+    first_any = next((frame(t) for t in common if ip[t][1:3] != ir[t][1:3]),
+                     None)
     first_inl = None
     for t in common:
         a, b = ip[t][2], ir[t][2]
@@ -344,6 +347,7 @@ def compare(port_dir: str, ref_dir: str, t0: float, fps: float) -> dict:
     for tag in ("port", "reference"):
         print(f"  frames not OK, {tag}: {not_ok[tag]}")
     print(f"  first frame whose states differ: {first_state}")
+    print(f"  first frame whose inlier counts differ: {first_any}")
     print(f"  first frame whose local-map inliers part by > 30% (frame, "
           f"port, reference): {first_inl}")
     for tag in ("port", "reference"):
@@ -366,6 +370,7 @@ def compare(port_dir: str, ref_dir: str, t0: float, fps: float) -> dict:
               f"median {dist['median_m']}, max {dist['max_m']} m; first "
               f"frame over 2 cm: {part}")
     return dict(runs=runs, not_ok=not_ok, first_state_diff=first_state,
+                first_inlier_count_diff=first_any,
                 first_inlier_diff=first_inl, failed=failed,
                 ok_failed=ok_failed, pose_distance=dist)
 
@@ -386,11 +391,12 @@ def main(argv=None) -> int:
     ap.add_argument("--icp", action="store_true")
     ap.add_argument("--lidar", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--render-device", default=None,
+                    help="device that renders the frames and IMU samples "
+                         "(default: --device)")
     ap.add_argument("--reference", default=None)
     ap.add_argument("--report-only", action="store_true")
     args = ap.parse_args(argv)
-    if args.mode == "mono":
-        raise NotImplementedError(f"not ported yet: --mode {args.mode}")
     if not args.report_only:
         run(args)
     if args.reference:

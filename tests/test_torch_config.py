@@ -112,11 +112,12 @@ def test_check_config_stereo_and_cameras():
                 dataclasses.replace(base, sensor="stereo", frame=kb8,
                                     stereo_fisheye=rig, imu=C.ImuConfig()),
                 dataclasses.replace(base, sensor="mono"),
-                dataclasses.replace(base, sensor="mono", imu=C.ImuConfig())):
+                dataclasses.replace(base, sensor="mono", imu=C.ImuConfig()),
+                dataclasses.replace(base, local_ba_every_kf=False)):
         check_config(cfg)
         check_supported(cfg.frame)
     for bad in (dict(sensor="mono", use_of=True),
-                dict(local_ba_every_kf=False),
+                dict(sensor="mono", use_icp=True),
                 dict(sensor="mono", imu=C.ImuConfig(), use_lidar=True)):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))

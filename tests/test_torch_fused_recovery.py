@@ -279,11 +279,12 @@ def test_mean_reproj_error_matches_reference(scene, reference):
 
 def test_kf_watchdog_matches_reference():
     """The same KF times and frame stamps through both methods on stubs:
-    the same count of warnings at the same frames."""
+    the same count of warnings at the same frames; in localization mode
+    neither warns."""
     def stub():
         return types.SimpleNamespace(
             _last_kf_time=0.0, _last_stall_warn=-1e18, kf_stall_warnings=0,
-            frames_since_kf=0, _carried_streak=0)
+            frames_since_kf=0, _carried_streak=0, _localization_only=False)
     j, t = stub(), stub()
     kf_at = {5.0, 30.0, 31.0, 62.5}
     trace_j, trace_t = [], []
@@ -300,6 +301,10 @@ def test_kf_watchdog_matches_reference():
     assert t.kf_stall_warnings == 6
     with pytest.warns(UserWarning, match="KF-stall"):
         SlamSystem._kf_watchdog(t, 200.0)
+    j._localization_only = t._localization_only = True
+    JSlam._kf_watchdog(j, 400.0)
+    SlamSystem._kf_watchdog(t, 400.0)
+    assert (j.kf_stall_warnings, t.kf_stall_warnings) == (6, 7)
 
 
 def test_failed_frame_holds_pose_motion_model_and_bindings(scene, port):

@@ -23,9 +23,9 @@ inputs:
   re-runs) on the initialized maps: the maps within 1e-4, the same
   outcomes;
 * apply_scaled_rotation on a random map within 1e-5;
-* check_config accepts imu with use_icp, use_of or both and with the
-  monocular sensor, and raises on imu with local_ba_every_kf=False or the
-  monocular sensor with use_icp, SlamSystem takes
+* check_config accepts imu with use_icp, use_of or both, with the
+  monocular sensor and with local_ba_every_kf=False, and raises on imu with
+  the monocular sensor and use_odom or use_icp, SlamSystem takes
   imu without a vocabulary or with record_reproj_err (the staged step), and
   SlamSystem(cfg with imu, device="cuda") raises without CUDA.
 """
@@ -279,9 +279,10 @@ def test_apply_scaled_rotation():
 def test_imu_config_checks():
     base = C.SystemConfig(imu=C.ImuConfig())
     for ok in (dict(use_icp=True), dict(use_of=True),
-               dict(use_icp=True, use_of=True), dict(sensor="mono")):
+               dict(use_icp=True, use_of=True), dict(sensor="mono"),
+               dict(local_ba_every_kf=False)):
         check_config(dataclasses.replace(base, **ok))
-    for bad in (dict(local_ba_every_kf=False),
+    for bad in (dict(sensor="mono", use_odom=True),
                 dict(sensor="mono", use_icp=True)):
         with pytest.raises(NotImplementedError):
             check_config(dataclasses.replace(base, **bad))

@@ -161,7 +161,7 @@ def test_cuda_system_without_cuda_raises(monkeypatch):
 
 def test_unported_options_raise():
     for kw in (dict(sensor="mono", use_odom=True),
-               dict(local_ba_every_kf=False)):
+               dict(sensor="mono", use_icp=True)):
         with pytest.raises(NotImplementedError):
             SlamSystem(C.SystemConfig(k_max=4, m_max=64, **kw), "cpu")
 

@@ -33,9 +33,9 @@
 * state/frame.build_frame with FrameConfig(lidar_features=True) at 320x240
   (stride 8, 1024 cloud points): the frame's cloud equal to the JAX
   build_frame's (mask identical, points within 1e-6 m);
-* check_config accepts use_lidar, use_odom and the IMU with use_icp,
-  use_of or both, and raises NotImplementedError on
-  local_ba_every_kf=False and on the monocular sensor with use_lidar or
+* check_config accepts use_lidar, use_odom, the IMU with use_icp,
+  use_of or both and use_lidar with local_ba_every_kf=False, and raises
+  NotImplementedError on the monocular sensor with use_of, use_lidar or
   use_odom.
 """
 import dataclasses
@@ -289,9 +289,11 @@ def test_check_config_accepts_sensor_fusion():
                 dataclasses.replace(base, use_odom=True),
                 dataclasses.replace(imu, use_icp=True),
                 dataclasses.replace(imu, use_of=True),
-                dataclasses.replace(imu, use_icp=True, use_of=True)):
+                dataclasses.replace(imu, use_icp=True, use_of=True),
+                dataclasses.replace(base, use_lidar=True,
+                                    local_ba_every_kf=False)):
         check_config(cfg)
-    for bad in (dict(local_ba_every_kf=False),
+    for bad in (dict(sensor="mono", use_of=True),
                 dict(sensor="mono", use_lidar=True),
                 dict(sensor="mono", use_odom=True)):
         with pytest.raises(NotImplementedError):

@@ -207,9 +207,10 @@ def test_convert_atlas_and_track_result(built, tmp_path):
     """The npz of the reference's save_atlas loads into the port's MapState
     with every field equal (uint32 descriptor words as int32 bits)."""
     from geoflowslam_tpu.state.serialize import save_atlas
+    from geoflowslam_tpu_torch.state import serialize as TSER
     path = str(tmp_path / "atlas")
     save_atlas(path, built["ms"])
-    ms_t, extra = convert.load_atlas(path, CPU)
+    ms_t, extra = TSER.load_atlas(path, check_vocab=False, device=CPU)
     assert extra == {}
     for name in TM.MapState._fields:
         ref = np.asarray(getattr(built["ms"], name))
