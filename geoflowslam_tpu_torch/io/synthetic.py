@@ -146,9 +146,15 @@ def sample_texture(tex: torch.Tensor, u: torch.Tensor,
             + tex[v1, u0] * (1 - du) * dv + tex[v1, u1] * du * dv)
 
 
-def smooth_trajectory(t: torch.Tensor, scale: float = 1.0):
+def smooth_trajectory(t: torch.Tensor, scale: float = 1.0,
+                      freq: float = 1.0):
     """Analytic Twc trajectory inside the room at times t [...]: returns
-    (R_wc, p_w, v_w, a_w, w_body); the camera looks roughly +z."""
+    (R_wc, p_w, v_w, a_w, w_body); the camera looks roughly +z. `freq`
+    warps time (the same path, freq x faster): velocities scale by freq,
+    accelerations by freq^2 (IMU excitation for mono-inertial scale)."""
+    if freq != 1.0:
+        rot, p, v, a, w = smooth_trajectory(t * freq, scale)
+        return rot, p, v * freq, a * freq ** 2, w * freq
     p = torch.stack([
         0.8 * scale * torch.sin(0.5 * t),
         0.3 * scale * torch.sin(0.7 * t + 1.0),
@@ -185,17 +191,19 @@ class SyntheticSequence:
     the world (camera = IMU body, gravity along world -z)."""
 
     def __init__(self, world: SyntheticWorld, fps: float = 30.0,
-                 imu_rate: float = 200.0, scale: float = 1.0):
+                 imu_rate: float = 200.0, scale: float = 1.0,
+                 freq: float = 1.0):
         self.world = world
         self.fps = fps
         self.imu_rate = imu_rate
         self.scale = scale
+        self.freq = freq
 
     def pose_cw(self, t: float):
         """Ground-truth Tcw at time t, float32 on the world's device."""
         tt = torch.tensor(float(t), dtype=torch.float32,
                           device=self.world.device)
-        rot_wc, p, *_ = smooth_trajectory(tt, self.scale)
+        rot_wc, p, *_ = smooth_trajectory(tt, self.scale, self.freq)
         rot_cw = rot_wc.T
         return rot_cw, -rot_cw @ p
 
@@ -207,9 +215,9 @@ class SyntheticSequence:
     def imu_between(self, t0: float, t1: float, max_samples: int):
         """Padded IMU samples in (t0, t1]: (acc [S, 3], gyro [S, 3], dt [S])
         in the body frame, float32 on the world's device."""
-        return _imu_between(lambda ts: smooth_trajectory(ts, self.scale),
-                            self.world.device, self.imu_rate, t0, t1,
-                            max_samples)
+        return _imu_between(
+            lambda ts: smooth_trajectory(ts, self.scale, self.freq),
+            self.world.device, self.imu_rate, t0, t1, max_samples)
 
 
 def _imu_between(trajectory, dev, rate: float, t0: float, t1: float,

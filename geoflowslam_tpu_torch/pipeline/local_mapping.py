@@ -20,7 +20,9 @@ local BA's place.
 After a loop or a merge: `fuse_pair` welds the two loop ends, and the global
 BA runs either at once (`global_ba_step`) or as `AsyncGBA`, one GN iteration
 per tracked frame with the corrections propagated on write-back
-(LoopClosing::RunGlobalBundleAdjustment).
+(LoopClosing::RunGlobalBundleAdjustment). Given a parallel.dist_ba.LandMesh,
+both run the landmark-sharded iteration instead
+(`global_ba_step_distributed`, `AsyncGBA(mesh=...)`).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from geoflowslam_tpu_torch.math.triangulate import triangulate_points_f64
 from geoflowslam_tpu_torch.ops import matching
 from geoflowslam_tpu_torch.ops.indexing import (scatter_set, scatter_set_2d,
                                                 topk_stable)
+from geoflowslam_tpu_torch.parallel import dist_ba
 from geoflowslam_tpu_torch.pipeline import tracking as T
 from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.solvers import local_ba
@@ -217,6 +220,25 @@ def global_ba_step(ms: M.MapState, cfg: MappingConfig, ba_pts: int = 4096):
                         mp_in, ctx)
 
 
+def global_ba_step_distributed(ms: M.MapState, cfg: MappingConfig, mesh,
+                               ba_pts: int = 4096, iters: int = 10):
+    """The global BA over a parallel.dist_ba.LandMesh: the landmarks cut
+    into the mesh's shards, `iters` sharded GN steps (Huber on each, no
+    re-gating), then the inliers recomputed on the optimised problem for the
+    write-back's edge pruning. ba_pts must be divisible by the mesh size."""
+    in_win, fixed = _gba_window(ms)
+    prob, mp_idx, mp_in, ctx = _gba_extract(ms, in_win, fixed, cfg, ba_pts)
+    out = dist_ba.make_distributed_ba(mesh, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                      cfg.bf, iters=iters)(prob)
+    r, _, _, behind = local_ba.residuals(out, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                         cfg.bf)
+    th = torch.where(out.is_stereo, local_ba.CHI2_STEREO, local_ba.CHI2_MONO)
+    inl = out.obs_valid & (local_ba.chi2(r, out) <= th) & ~behind
+    kf_idx = torch.arange(ms.k_max, device=in_win.device)
+    return writeback_ba(ms, out, inl, kf_idx, in_win, fixed, mp_idx, mp_in,
+                        ctx)
+
+
 def _gba_window(ms: M.MapState):
     """Every valid KF of the active map; the two oldest fixed."""
     in_win = ms.kf_valid & (ms.kf_map_id == ms.active_map)
@@ -247,13 +269,17 @@ class AsyncGBA:
     the temporal chain and to the other points through their reference KF."""
 
     def __init__(self, cfg: MappingConfig, ba_pts: int = 4096,
-                 iters_total: int = 15):
+                 iters_total: int = 15, mesh=None):
         self.cfg = cfg
         self.ba_pts = ba_pts
         self.iters_total = iters_total
         self.active = False
         self.i = 0
         self._prob = None
+        # an optional parallel.dist_ba.LandMesh: each micro-step is then one
+        # landmark-sharded iteration instead of the one-device GN step
+        self.mesh = mesh
+        self._dist_iter = None
 
     def start(self, ms: M.MapState):
         in_win, fixed = _gba_window(ms)
@@ -276,8 +302,14 @@ class AsyncGBA:
         if not self.active:
             return False
         c = self.cfg
-        self._prob = local_ba._gn_step(self._prob, self._active_mask, c.fx,
-                                       c.fy, c.cx, c.cy, c.bf, True)
+        if self.mesh is not None:
+            if self._dist_iter is None:
+                self._dist_iter = dist_ba.make_distributed_ba(
+                    self.mesh, c.fx, c.fy, c.cx, c.cy, c.bf, iters=1)
+            self._prob = self._dist_iter(self._prob)
+        else:
+            self._prob = local_ba._gn_step(self._prob, self._active_mask,
+                                           c.fx, c.fy, c.cx, c.cy, c.bf, True)
         self.i += 1
         return self.i >= self.iters_total
 

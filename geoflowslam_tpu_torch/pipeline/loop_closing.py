@@ -14,7 +14,8 @@ keyframe's mapping step:
 * correction: an Atlas merge when the candidate is in a dormant map, then
   the essential-graph pose-graph GN with map points re-anchored through
   their reference KF (`correct_loop`), the seam welded by `fuse_pair` and a
-  welding local BA, and optionally a synchronous global BA.
+  welding local BA, and optionally a synchronous global BA (landmark-
+  sharded over `mesh` when one is given: parallel/dist_ba.py).
 """
 from __future__ import annotations
 
@@ -221,8 +222,12 @@ class LoopCloser:
 
     def __init__(self, vocab: V.Vocabulary, k_max: int,
                  cfg: LoopConfig = LoopConfig(),
-                 map_cfg: Optional[MappingConfig] = None, *, device):
+                 map_cfg: Optional[MappingConfig] = None, mesh=None, *,
+                 device):
         self.vocab = vocab
+        # an optional parallel.dist_ba.LandMesh: the synchronous global BA
+        # then runs landmark-sharded
+        self.mesh = mesh
         self.cfg = cfg
         self.device = torch.device(device)
         self.db = DB.KFDatabase.create(k_max, vocab.n_words, self.device)
@@ -309,7 +314,11 @@ class LoopCloser:
                 ms = LM.fuse_pair(ms, cur, nb_best, self._map_cfg)
             ms, _ = LM.local_ba_step(ms, cur, self._map_cfg)
         if self.cfg.run_global_ba:
-            ms = LM.global_ba_step(ms, self._map_cfg)
+            if self.mesh is not None:
+                ms = LM.global_ba_step_distributed(ms, self._map_cfg,
+                                                   self.mesh)
+            else:
+                ms = LM.global_ba_step(ms, self._map_cfg)
         self.n_loops += 1
         self._reset_chains()
         return ms, True

@@ -134,7 +134,10 @@ its mapping step, and a verified loop is closed at once
 (pipeline/loop_closing.py: Atlas merge or pose graph, seam welding), the
 current pose carried along and the global BA restarted as per-frame
 micro-steps (local_mapping.AsyncGBA). Loop detection acts at the KF rather
-than `fused_lag` frames later, in both modes.
+than `fused_lag` frames later, in both modes. With a mesh
+(`SlamSystem(cfg, device, vocab, mesh=LandMesh([...]))`) the global BA's
+micro-steps, and the synchronous global BA of `run_global_ba`, run
+landmark-sharded over its devices (parallel/dist_ba.py).
 """
 from __future__ import annotations
 
@@ -157,6 +160,7 @@ from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.ops import pyramid as pyr_ops
 from geoflowslam_tpu_torch.ops import stereo as ST
 from geoflowslam_tpu_torch.ops.extractor import extract
+from geoflowslam_tpu_torch.parallel.dist_ba import LandMesh
 from geoflowslam_tpu_torch.pipeline import inertial as IN
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
@@ -185,20 +189,10 @@ class TrackingState(enum.Enum):
 
 def check_config(cfg: SystemConfig) -> None:
     """Raise on options outside the ported RGB-D, stereo, stereo-fisheye and
-    monocular paths and their inertial variants (with OF, ICP, lidar,
-    odometry, relocalization and loop closing; monocular without the four
-    GeoFlow streams)."""
-    mono = cfg.sensor == "mono"
-    off = {f"sensor={cfg.sensor!r}": cfg.sensor in ("rgbd", "stereo",
-                                                    "mono")}
-    off.update({f"sensor='mono' with {name}": not (mono and on)
-                for name, on in (("use_of", cfg.use_of),
-                                 ("use_icp", cfg.use_icp),
-                                 ("use_lidar", cfg.use_lidar),
-                                 ("use_odom", cfg.use_odom))})
-    bad = [name for name, ok in off.items() if not ok]
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+    monocular paths and their inertial variants (each with OF, ICP, lidar,
+    odometry, relocalization and loop closing)."""
+    if cfg.sensor not in ("rgbd", "stereo", "mono"):
+        raise NotImplementedError(f"not ported yet: sensor={cfg.sensor!r}")
     check_supported(cfg.frame)
 
 
@@ -206,10 +200,13 @@ class SlamSystem:
     """RGB-D SLAM on one device. `device` is required to be explicit; a CUDA
     device without CUDA raises instead of running on the CPU. `vocab`
     (retrieval/vocab.py) enables relocalization and, with cfg.loop, loop
-    closing."""
+    closing. `mesh` (a parallel.dist_ba.LandMesh) runs the global BA
+    landmark-sharded over its devices, the partial systems reduced on its
+    first device; the map stays on `device`."""
 
     def __init__(self, cfg: SystemConfig, device: torch.device | str,
-                 vocab: Optional[Vv.Vocabulary] = None):
+                 vocab: Optional[Vv.Vocabulary] = None,
+                 mesh: Optional[LandMesh] = None):
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamSystem: CUDA device requested but "
@@ -268,7 +265,7 @@ class SlamSystem:
         self.vocab = vocab.to(dev) if vocab is not None else None
         self.loop_closer = (
             LoopCloser(self.vocab, cfg.k_max, cfg.loop, map_cfg=self.mcfg,
-                       device=dev)
+                       mesh=mesh, device=dev)
             if self.vocab is not None and cfg.loop is not None else None)
         self._reloc_db = (
             DBD.KFDatabase.create(cfg.k_max, self.vocab.n_words, dev)
@@ -284,7 +281,8 @@ class SlamSystem:
         self.timers = StageTimers()
         self.f2f_reproj: list = []
         self.f2m_reproj: list = []
-        self._gba = LM.AsyncGBA(self.mcfg) if cfg.loop is not None else None
+        self._gba = (LM.AsyncGBA(self.mcfg, mesh=mesh)
+                     if cfg.loop is not None else None)
         # with use_icp: slot -> (cloud, valid) of the last 40 KFs (the
         # inter-KF registrations and the loop closer's use_icp_loop), and
         # slot -> (rot, t, previous slot, gate) of the registration T_cw[slot]
@@ -1015,10 +1013,11 @@ class SlamSystem:
             ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
                                           res.t, self.tcfg, self.local_masks)
         n2 = res2.n_inliers
-        if of_innov is not None:
-            # health count: OF-slot inliers whose track never left its
-            # predicted start (< 1 px) confirm any prediction on degenerate
-            # texture; they feed the pose solve but not the health gate
+        if of_innov is not None and not staged_run:
+            # the fused step's health count: OF-slot inliers whose track
+            # never left its predicted start (< 1 px) confirm any prediction
+            # on degenerate texture; they feed the pose solve but not the
+            # health gate (the reference's staged step counts them)
             n2 = n2 - torch.sum((of_innov < 1.0) & (res2.obs_mp >= 0))
         n2 = int(n2)
         if cfg.use_lidar and (not staged_step or (

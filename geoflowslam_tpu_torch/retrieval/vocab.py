@@ -119,6 +119,64 @@ def build_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
     return _from_numpy(level_centers, idf, k, levels, device)
 
 
+def load_dbow2_text(path, max_levels: int | None = None, *,
+                    device) -> Vocabulary:
+    """Read a DBoW2 text vocabulary (ORBvoc.txt: a header `k L scoring
+    weighting`, then one node per line `parent is_leaf d0..d31 weight`, node
+    ids implicit from 1, the root 0). DBoW2 trees can be incomplete: a
+    missing node takes its first sibling's centre, and its children the
+    parent's node id, so it wins no argmin over real siblings except on
+    ties. A last-level word takes the stored weight of the node it descends
+    from. ORBvoc.txt was trained on OpenCV-pattern ORB descriptors; the
+    extractor's generated BRIEF pattern needs a `build_vocabulary` tree."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, levels = int(header[0]), int(header[1])
+        if max_levels is not None:
+            levels = min(levels, max_levels)
+        children: dict = {}
+        id2desc, id2w, roots = {}, {}, []
+        for i, line in enumerate(f):
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            nid, parent = i + 1, int(parts[0])
+            id2desc[nid] = np.frombuffer(bytes(int(x) for x in parts[2:34]),
+                                         dtype=np.uint32).copy()
+            id2w[nid] = float(parts[34])
+            children.setdefault(parent, []).append(nid)
+            if parent == 0:
+                roots.append(nid)
+    slot_nodes = roots[:k] + [None] * (k - len(roots[:k]))
+    level_centers, last_nodes = [], slot_nodes
+    for _ in range(levels):
+        centers = np.zeros((len(slot_nodes), 8), np.uint32)
+        next_nodes = []
+        for si, nid in enumerate(slot_nodes):
+            if nid is not None and nid in id2desc:
+                centers[si] = id2desc[nid]
+            elif si > 0:
+                centers[si] = centers[(si // k) * k]
+            kids = children.get(nid, [])[:k] if nid is not None else []
+            next_nodes.extend(kids + [nid] * (k - len(kids)))
+        level_centers.append(centers)
+        last_nodes, slot_nodes = slot_nodes, next_nodes
+    weights = np.array([id2w.get(nid, 1.0) if nid is not None else 0.0
+                        for nid in last_nodes], np.float32)
+    if not np.any(weights > 0):
+        weights = np.ones((k ** levels,), np.float32)
+    return _from_numpy(level_centers, weights, k, levels, device)
+
+
+def save_vocabulary(path, vocab: Vocabulary):
+    """Write a vocabulary as npz, the format `load_vocabulary` (and the
+    reference's) reads: centres as uint32 words."""
+    arrs = {f"centers_{i}": c.cpu().numpy().view(np.uint32)
+            for i, c in enumerate(vocab.centers)}
+    np.savez_compressed(path, k=vocab.k, levels=vocab.levels,
+                        weights=vocab.weights.cpu().numpy(), **arrs)
+
+
 def load_vocabulary(path, device) -> Vocabulary:
     """Read a vocabulary npz (the reference's save_vocabulary format)."""
     with np.load(path) as z:

@@ -94,8 +94,8 @@ def test_config_methods_equal():
 def test_check_config_stereo_and_cameras():
     """check_config takes the stereo sensor and a stereo-fisheye rig,
     check_supported KB8 and radtan keypoint undistortion, and the monocular
-    sensor with and without the IMU; local BA off, the monocular sensor
-    with OF or lidar, and an unknown camera model still raise."""
+    sensor with and without the IMU, with OF, ICP or lidar too, and local BA
+    off; an unknown sensor and an unknown camera model still raise."""
     from geoflowslam_tpu_torch.pipeline.system import SlamSystem, check_config
     from geoflowslam_tpu_torch.state.frame import check_supported
     kb8 = C.FrameConfig(camera_model="kb8",
@@ -116,11 +116,15 @@ def test_check_config_stereo_and_cameras():
                 dataclasses.replace(base, local_ba_every_kf=False)):
         check_config(cfg)
         check_supported(cfg.frame)
-    for bad in (dict(sensor="mono", use_of=True),
-                dict(sensor="mono", use_icp=True),
-                dict(sensor="mono", imu=C.ImuConfig(), use_lidar=True)):
-        with pytest.raises(NotImplementedError):
-            check_config(dataclasses.replace(base, **bad))
+    for ok in (dict(sensor="mono", use_of=True),
+               dict(sensor="mono", use_icp=True),
+               dict(sensor="mono", imu=C.ImuConfig(), use_lidar=True)):
+        cfg = dataclasses.replace(base, **ok)
+        check_config(cfg)
+        SlamSystem(dataclasses.replace(cfg, k_max=4, m_max=64, frame=C.FrameConfig(orb=C.OrbConfig(
+            n_features=50, n_levels=2, height=64, width=64))), "cpu")
+    with pytest.raises(NotImplementedError):
+        check_config(dataclasses.replace(base, sensor="lidar"))
     with pytest.raises(NotImplementedError):
         check_supported(C.FrameConfig(camera_model="equidistant"))
     slam = SlamSystem(dataclasses.replace(

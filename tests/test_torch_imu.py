@@ -24,8 +24,8 @@ inputs:
   outcomes;
 * apply_scaled_rotation on a random map within 1e-5;
 * check_config accepts imu with use_icp, use_of or both, with the
-  monocular sensor and with local_ba_every_kf=False, and raises on imu with
-  the monocular sensor and use_odom or use_icp, SlamSystem takes
+  monocular sensor (also with use_odom or use_icp) and with
+  local_ba_every_kf=False, SlamSystem takes
   imu without a vocabulary or with record_reproj_err (the staged step), and
   SlamSystem(cfg with imu, device="cuda") raises without CUDA.
 """
@@ -282,10 +282,13 @@ def test_imu_config_checks():
                dict(use_icp=True, use_of=True), dict(sensor="mono"),
                dict(local_ba_every_kf=False)):
         check_config(dataclasses.replace(base, **ok))
-    for bad in (dict(sensor="mono", use_odom=True),
-                dict(sensor="mono", use_icp=True)):
-        with pytest.raises(NotImplementedError):
-            check_config(dataclasses.replace(base, **bad))
+    for ok in (dict(sensor="mono", use_odom=True),
+               dict(sensor="mono", use_icp=True)):
+        cfg = dataclasses.replace(base, **ok)
+        check_config(cfg)
+        assert SlamSystem(dataclasses.replace(cfg, k_max=4, m_max=64, frame=C.FrameConfig(orb=C.OrbConfig(
+            n_features=50, n_levels=2, height=64, width=64))),
+                          "cpu").imu is not None
     check_config(base)
     # the staged IMU step is ported: no vocabulary, or record_reproj_err
     for cfg in (base, dataclasses.replace(base, record_reproj_err=True)):

@@ -160,10 +160,14 @@ def test_cuda_system_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
+    """The monocular sensor with odometry or ICP is ported; a sensor
+    outside the port still raises."""
     for kw in (dict(sensor="mono", use_odom=True),
                dict(sensor="mono", use_icp=True)):
-        with pytest.raises(NotImplementedError):
-            SlamSystem(C.SystemConfig(k_max=4, m_max=64, **kw), "cpu")
+        assert SlamSystem(C.SystemConfig(k_max=4, m_max=64, **kw),
+                          "cpu").cfg.sensor == "mono"
+    with pytest.raises(NotImplementedError):
+        SlamSystem(C.SystemConfig(k_max=4, m_max=64, sensor="lidar"), "cpu")
 
 
 def test_sources_and_build_dir():

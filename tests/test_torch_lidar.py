@@ -34,9 +34,9 @@
   (stride 8, 1024 cloud points): the frame's cloud equal to the JAX
   build_frame's (mask identical, points within 1e-6 m);
 * check_config accepts use_lidar, use_odom, the IMU with use_icp,
-  use_of or both and use_lidar with local_ba_every_kf=False, and raises
-  NotImplementedError on the monocular sensor with use_of, use_lidar or
-  use_odom.
+  use_of or both, use_lidar with local_ba_every_kf=False, and the
+  monocular sensor with use_of, use_lidar or use_odom (SlamSystem builds
+  those on the CPU).
 """
 import dataclasses
 
@@ -59,7 +59,7 @@ from geoflowslam_tpu.state.frame import build_frame as j_build_frame
 from geoflowslam_tpu_torch import config as C
 from geoflowslam_tpu_torch.ops import pointcloud as TP
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as TLD
-from geoflowslam_tpu_torch.pipeline.system import check_config
+from geoflowslam_tpu_torch.pipeline.system import SlamSystem, check_config
 from geoflowslam_tpu_torch.solvers import pose_opt as TPO
 from geoflowslam_tpu_torch.state.frame import build_frame
 
@@ -293,8 +293,11 @@ def test_check_config_accepts_sensor_fusion():
                 dataclasses.replace(base, use_lidar=True,
                                     local_ba_every_kf=False)):
         check_config(cfg)
-    for bad in (dict(sensor="mono", use_of=True),
-                dict(sensor="mono", use_lidar=True),
-                dict(sensor="mono", use_odom=True)):
-        with pytest.raises(NotImplementedError):
-            check_config(dataclasses.replace(base, **bad))
+    for ok in (dict(sensor="mono", use_of=True),
+               dict(sensor="mono", use_lidar=True),
+               dict(sensor="mono", use_odom=True)):
+        cfg = dataclasses.replace(base, **ok)
+        check_config(cfg)
+        slam = SlamSystem(dataclasses.replace(cfg, k_max=4, m_max=64, frame=C.FrameConfig(orb=C.OrbConfig(
+            n_features=50, n_levels=2, height=64, width=64))), "cpu")
+        assert (slam.lidar_map is not None) == cfg.use_lidar

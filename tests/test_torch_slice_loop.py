@@ -49,6 +49,7 @@ from geoflowslam_tpu_torch import convert
 from geoflowslam_tpu_torch.eval.ate import ate_rmse
 from geoflowslam_tpu_torch.ops import gicp as G
 from geoflowslam_tpu_torch.ops.extractor import extract
+from geoflowslam_tpu_torch.parallel import dist_ba as TD
 from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
 from geoflowslam_tpu_torch.pipeline import loop_closing as TLC
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
@@ -218,6 +219,34 @@ def test_port_meets_the_gates_and_tracks_the_reference(world, reference,
     for t in common:
         err = np.linalg.norm(rt[t][:3, 3] - pt[t][:3, 3])
         assert err < bound, (t, err, bound)
+
+
+def test_mesh_system_matches_single_device(world, port):
+    """SlamSystem(..., mesh=LandMesh(["cpu"] * 8)) on the same frames
+    (tests/test_mesh_system_e2e.py's check, on this scenario): the gates,
+    the merge's asynchronous global BA stepped on the mesh, and the
+    trajectory within 2 cm RMS of the run without a mesh (JAX's bound,
+    tests/test_mesh_system_e2e.py:90; the sharded step has no
+    Levenberg-Marquardt diagonal, and its partials sum in another order)."""
+    seq, jvoc, _ = world
+    _, tcfg = configs(time_recently_lost=0.25, min_kfs_for_new_map=6,
+                      loop=LOOP)
+    mesh = TD.LandMesh(["cpu"] * 8)
+    slam = SlamSystem(tcfg, "cpu", vocab=convert.vocabulary(jvoc, "cpu"),
+                      mesh=mesh)
+    for t, g, d in _steps(seq, slam):
+        slam.track_rgbd(g, d, t)
+    _gates(slam.map_stats(),
+           slam.loop_closer.n_loops + slam.loop_closer.n_merges,
+           _kf_share(slam.ms.kf_valid, slam.ms.kf_map_id,
+                     slam.ms.active_map))
+    assert slam.loop_closer.mesh is mesh and slam._gba.mesh is mesh
+    assert slam._gba.i >= 1, "the distributed global BA never stepped"
+    traj = dict((round(t, 4), p) for t, p in slam.trajectory)
+    common = sorted(set(traj) & set(port["traj"]))
+    assert len(common) >= N_A + N_C - 4
+    d = np.array([traj[t][:3, 3] - port["traj"][t][:3, 3] for t in common])
+    assert float(np.sqrt((d ** 2).sum(1).mean())) < 0.02
 
 
 def test_detect_step_matches_reference(world, reference):
@@ -410,6 +439,73 @@ def test_global_ba_step_matches_reference(reference):
                                rtol=0)
     moved = np.abs(np.asarray(want.kf_t) - np.asarray(ms.kf_t))[valid]
     assert moved.max() > 1e-5
+
+
+def _jax_mesh8():
+    devs = jax.devices()
+    assert len(devs) >= 8, "conftest pins an 8-device virtual CPU platform"
+    return jax.sharding.Mesh(np.array(devs[:8]), ("land",))
+
+
+def _hold(got, want, before, moved_min):
+    """KF poses within 1 mm and 0.05 deg, points within 1 cm, and the BA
+    moved something."""
+    valid = np.asarray(want.kf_valid)
+    assert valid.sum() >= 8
+    np.testing.assert_allclose(got.kf_t.numpy()[valid],
+                               np.asarray(want.kf_t)[valid], atol=1e-3,
+                               rtol=0)
+    for k in np.flatnonzero(valid):
+        assert _rot_deg(got.kf_rot[k].numpy(), want.kf_rot[k]) < 0.05
+    mp = np.asarray(want.mp_valid)
+    np.testing.assert_allclose(got.mp_pos.numpy()[mp],
+                               np.asarray(want.mp_pos)[mp], atol=1e-2,
+                               rtol=0)
+    moved = np.abs(np.asarray(want.kf_t) - np.asarray(before.kf_t))[valid]
+    assert moved.max() > moved_min
+
+
+def test_async_global_ba_mesh_matches_reference(reference):
+    """The mesh counterpart of test_async_global_ba_matches_reference: the
+    merge's global BA snapshot through AsyncGBA(mesh=...) on both sides,
+    JAX's 8-device virtual mesh against the port's LandMesh of 8 CPU
+    shards, every micro-step one landmark-sharded iteration, finished on
+    the final state. The same bounds."""
+    start_ms, final_ms = reference["gba_starts"][0], reference["slam"].ms
+    mcfg = reference["slam"].loop_closer._map_cfg
+    g = JLM.AsyncGBA(mcfg, mesh=_jax_mesh8())
+    g.start(start_ms)
+    while not g.step():
+        pass
+    want = g.finish(final_ms)
+    _, tcfg = configs(loop=LOOP)
+    mesh = TD.LandMesh(["cpu"] * 8)
+    tg = TLM.AsyncGBA(tcfg.map_cfg(), mesh=mesh)
+    assert tg.mesh is mesh
+    tg.start(convert.map_state(start_ms, "cpu"))
+    n = 1
+    while not tg.step():
+        n += 1
+    assert n == g.iters_total == tg.i
+    got = tg.finish(convert.map_state(final_ms, "cpu"))
+    _hold(got, want, final_ms, 1e-4)
+
+
+def test_global_ba_step_mesh_matches_reference(reference):
+    """The mesh counterpart of test_global_ba_step_matches_reference:
+    global_ba_step_distributed (ba_pts 4096, 10 iterations) on the merged
+    state, JAX's 8-device mesh against the port's 8 CPU shards. The same
+    bounds, and the pruned observations equal."""
+    ms = reference["slam"].ms
+    mcfg = reference["slam"].loop_closer._map_cfg
+    want = JLM.global_ba_step_distributed(ms, mcfg, _jax_mesh8())
+    _, tcfg = configs(loop=LOOP)
+    got = TLM.global_ba_step_distributed(convert.map_state(ms, "cpu"),
+                                         tcfg.map_cfg(),
+                                         TD.LandMesh(["cpu"] * 8))
+    _hold(got, want, ms, 1e-5)
+    np.testing.assert_array_equal(got.kf_obs_mp.numpy(),
+                                  np.asarray(want.kf_obs_mp))
 
 
 def test_icp_loop_takes_the_registration(world, verified, monkeypatch):
