@@ -6,17 +6,18 @@ async_global_ba=True)): build a map, lose it on blank frames, revisit and
 merge. Each package runs it with and without the mesh.
 
 Gates on the port: both runs OK with a merge or a loop, the mesh run's
-asynchronous global BA stepped on the mesh; and its trajectory no farther
-from the run without a mesh (RMS over their common stamps) than the
-reference's mesh run is from its own run without one. The reference's own
-bound, 2 cm (tests/test_mesh_system_e2e.py:90), fails in the JAX package
-on this machine: 0.84 m in its own test, 1.30 and 2.39 m in two runs of
-this one (the reference's runs differ from process to process, the
-port's do not). Its sharded step is Gauss-Newton without the
+asynchronous global BA stepped on the mesh; and its trajectory within
+MESH_RMS_BOUND of the run without a mesh (RMS over their common stamps).
+The reference's own bound, 2 cm (tests/test_mesh_system_e2e.py:90), fails
+in the JAX package on the CPU: 0.84 m in its own test, 1.30 and 2.39 m in
+two runs of this one (the reference's runs differ from process to
+process, the port's do not), so the port's bound is set from its own
+deterministic reading instead. Its sharded step is Gauss-Newton without the
 single-device step's 1e-3 diagonal and re-gating, and on the freshly
 merged map it keeps moving the KFs: up to 18, 38, 41, 48 and 64 cm after
 1, 2, 3, 5 and 10 iterations in the port, where the single-device global
-BA moves them 28 cm. The port reads 25 cm. The two packages' mesh runs
+BA moves them 28 cm. The port reads 25 cm; MESH_RMS_BOUND gives it 5 cm
+of headroom, a fifth of the reading. The two packages' mesh runs
 are not compared pose by pose: past that step they part by metres (in
 one reference run its mesh run closed a second loop and ended
 RECENTLY_LOST). The step itself is held to JAX's on the merged loop-slice
@@ -43,6 +44,7 @@ from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 torch.set_num_threads(2)
 
 W, H = 320, 240
+MESH_RMS_BOUND = 0.30   # m; the port reads 0.25 m, the same in every run
 
 
 def _configs():
@@ -112,4 +114,4 @@ def test_mesh_system_against_reference():
         assert sum(run["events"]) >= 1, run["stats"]
     g = port_m["slam"]._gba
     assert g.mesh is mesh and g.i >= 1
-    assert rms["port"] <= rms["ref"], rms
+    assert rms["port"] < MESH_RMS_BOUND, rms

@@ -181,6 +181,27 @@ def test_dryrun_map_matches_jax_reduced():
         36 * 24 * 24 + 6 * 24) * 4
 
 
+@pytest.mark.slow
+def test_dryrun_production_against_jax_reading():
+    """The dry run at production shapes (256 KFs x 512 observations of 4096
+    landmarks, m_max 16384, ba_pts 4096) on four shards in both packages:
+    JAX's median landmark error after 2 iterations is the reading that
+    dryrun_multichip.REFERENCE_MEDIAN_ERR records (the card's mesh_gba
+    gate; 1e-6 m: its 4- and 1-device runs part by 1.1e-7), and the
+    port's is within REFERENCE_ERR_TOL of it (~1.2 GiB, ~1 min)."""
+    jms, jpts = G._populated_production_map()
+    ref = JLM.global_ba_step_distributed(jms, JLM.MappingConfig(),
+                                         _jax_mesh(4), ba_pts=4096, iters=2)
+    jerr = float(np.median(np.linalg.norm(
+        np.asarray(ref.mp_pos[:4096]) - np.asarray(jpts), axis=1)))
+    ms, pts = DR.populated_map("cpu", pts=DR.reference_landmarks())
+    err = DR.check_gate(ms, pts, DR.mesh_of(4, ["cpu"]),
+                        reference=DR.REFERENCE_MEDIAN_ERR)
+    print(f"median landmark error after 2 iterations: JAX {jerr:.9f} m, "
+          f"port {err:.9f} m")
+    assert abs(jerr - DR.REFERENCE_MEDIAN_ERR) < 1e-6, jerr
+
+
 def test_reference_landmarks_are_the_jax_draw():
     """The dry run's landmark asset is the JAX dry run's own draw."""
     _, jpts = G._populated_production_map(k_used=2, n_kp=8, n_pts=4096,

@@ -11,19 +11,23 @@ keys), as the reference's staged step draws them.
   same KF count, OF points appended, the LK pyramid (the fused K3 kernel
   on the card) run once a frame after the init. Each trajectory is aligned
   to ground truth in 7 DoF; the RMS of the per-frame differences within 2
-  x the reference's ATE and their median within max(2 cm, its ATE). The
-  largest single difference is not held to 2 x ATE as in the plain mono
-  test: the two runs part by up to 15.6 cm on one frame against a 5.7 cm
-  reference ATE (printed by _hold). Both maps start from one init, but
-  the reference triangulates in float32, the port in float64, and the OF
-  slots multiply the points that differ.
+  x the reference's ATE, their median within max(2 cm, its ATE) and the
+  largest within MAX_DIFF. The largest is not held to 2 x ATE as in the
+  plain mono test: the two runs part by up to 15.6 cm on one frame
+  against a 5.7 cm reference ATE (printed by _hold). Both maps start from
+  one init; the scene amplifies rounding-level changes that far. The
+  port against itself with its monocular triangulation in float32 (the
+  reference's precision) in place of float64 parts by up to 9.6 cm here
+  and 15.6 cm under odometry, and against the reference by 12.9 and 15.0
+  cm: the precision is not the cause, the amplification is.
 * use_odom, the trajectory's world velocity queued before every frame:
   the same gates, and every tracked frame reads and empties the queue in
   both packages (the monocular sensor runs the staged step on every
   frame). The velocity is metric and the map's scale is free (median depth
   1 at the init), so every prediction lands ~3x too far; both packages do
   this (ROADMAP's questionable behaviours), and single frames part by up
-  to 13.8 cm against ATEs of 4.2 (reference) and 3.5 cm (port).
+  to 13.8 cm against ATEs of 4.2 (reference) and 3.5 cm (port), within
+  the 15.6 cm that the float32 triangulation alone moves the port.
 * use_icp with use_lidar: a frame without depth has no cloud, so no
   registration and no plane factor; the trajectory equals the plain
   monocular run's in each package (24 frames).
@@ -31,11 +35,13 @@ keys), as the reference's staged step draws them.
   through the IMU initialization (tests/test_e2e_mono_inertial.py's
   scenario): the same mono and IMU init frames and states up to it.
 * slow tier: chip_smoke.py's mono_geoflow configuration (mono_tum's
-  intrinsics, 1000 features, 8 levels, 256 OF slots, odometry) at
-  320x240 over 120 frames at 30 fps, each package with its own draws: the
-  same init frame and states, KF counts within 1, and both 7-DoF ATEs over
-  the last 3/4 under test_e2e_mono.py's 6 cm (the card phase prints the
-  ATE at 640x480, where the OF slots lift it past 6 cm; PERF.md).
+  intrinsics, 1000 features, 8 levels, 256 OF slots, odometry) at 320x240
+  and at its 640x480 over 120 frames at 30 fps, each package with its own
+  draws: the same init frame and states, KF counts within 1; at 320x240
+  both 7-DoF ATEs over the last 3/4 under test_e2e_mono.py's 6 cm; at
+  640x480, where the OF slots lift it past 6 cm in both packages, the
+  reference's ATE equal to REF_ATE_640 and the port's under the card
+  phase's gate, that reading plus 5 mm (chip_smoke.MONO_GEOFLOW_ATE).
 """
 import dataclasses
 
@@ -51,17 +57,23 @@ from geoflowslam_tpu.pipeline.system import SystemConfig as JSys
 from geoflowslam_tpu.state.frame import FrameConfig as JFrame
 
 from geoflowslam_tpu_torch.eval.ate import ate_rmse
+from geoflowslam_tpu_torch.math import triangulate as TRI
 from geoflowslam_tpu_torch.ops import klt as TK
 from geoflowslam_tpu_torch.ops import ransac as TR
+from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
+from geoflowslam_tpu_torch.pipeline import mono_init as TMI
 from geoflowslam_tpu_torch.pipeline import of_tracking as TOF
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
-from geoflowslam_tpu_torch.tools import mono_streams as MS
 from test_torch_slice_mono import (N_MI, N_MONO, SAMPLE_SETS, _aligned,
                                    _configs, _frames, _run_until_imu_init)
 
 torch.set_num_threads(2)
 
 N_OF = 64
+# m: the largest per-frame difference _hold admits. The port moves by up
+# to 15.6 cm on one frame against its own run with float32 triangulation
+# (use_odom); about 30% on top.
+MAX_DIFF = 0.20
 
 
 class JaxDraws:
@@ -130,7 +142,8 @@ def _with(cfgs, n_of=0, **kw):
 def _hold(port, ref, frames):
     """The same init frame, states and KF count; the aligned trajectories'
     RMS difference within 2 x the reference's ATE, their median within
-    max(2 cm, its ATE); prints the ATEs and the differences."""
+    max(2 cm, its ATE), the largest within MAX_DIFF; prints the ATEs and
+    the differences."""
     assert port["init"] == ref["init"] is not None
     assert port["states"] == ref["states"]
     assert port["stats"]["n_kfs"] == ref["stats"]["n_kfs"]
@@ -146,6 +159,7 @@ def _hold(port, ref, frames):
           f"median {np.median(errs):.4f}, max {errs.max():.4f} m")
     assert np.sqrt(np.mean(errs ** 2)) < 2 * ate_ref, (errs, ate_ref)
     assert np.median(errs) < max(0.02, ate_ref), (errs, ate_ref)
+    assert errs.max() < MAX_DIFF, (errs, ate_ref)
 
 
 @pytest.fixture(scope="module")
@@ -232,9 +246,63 @@ def test_mono_inertial_of_against_reference(monkeypatch):
     assert slam.of_appended[0] > 5
 
 
+def _diffs(a, b, frames):
+    """Per-frame distances (m) between two runs' trajectories, each aligned
+    to ground truth in 7 DoF, over their common stamps."""
+    gt = [(f["t"], f["gt"]) for f in frames]
+    a, b = _aligned(a["traj"], gt), _aligned(b["traj"], gt)
+    return np.array([np.linalg.norm(a[t] - b[t])
+                     for t in sorted(set(a) & set(b))])
+
+
 @pytest.mark.slow
-def test_mono_geoflow_card_config_at_320():
-    tcfg = MS.mono_config(0.5, of=True, odom=True)
+@pytest.mark.parametrize("stream", ["of", "odom"])
+def test_mono_streams_rounding_envelope(mono_frames, monkeypatch, stream):
+    """Why the OF and odometry parity tests bound the largest per-frame
+    difference by MAX_DIFF and not by 2 x the reference's ATE: the scene
+    amplifies rounding-level changes. The port against itself with its
+    monocular triangulation in float32 (the reference's precision) in
+    place of float64, on the same draws, parts on single frames by at
+    least half as much as it parts from the reference (9.6 against 15.6 cm
+    with OF, 15.6 against 13.8 cm with odometry), and both stay under
+    MAX_DIFF. The float32 port does not come nearer the reference
+    (12.9 and 15.0 cm): float64 is not the cause."""
+    odom = stream == "odom"
+    kw = dict(n_of=N_OF, use_of=True) if stream == "of" else dict(
+        use_odom=True)
+    jcfg, tcfg = _with(_configs(imu=False), **kw)
+    ref = _run(JSlam(jcfg), mono_frames, odom=odom)
+    JaxDraws().install(monkeypatch)
+    port = _run(SlamSystem(tcfg, "cpu"), mono_frames, odom=odom)
+    monkeypatch.undo()
+    JaxDraws().install(monkeypatch)
+    monkeypatch.setattr(TMI.triangulate, "triangulate_points_f64",
+                        TRI.triangulate_points)
+    monkeypatch.setattr(TLM, "triangulate_points_f64",
+                        TRI.triangulate_points)
+    port32 = _run(SlamSystem(tcfg, "cpu"), mono_frames, odom=odom)
+    to_ref = _diffs(port, ref, mono_frames).max()
+    to_self = _diffs(port, port32, mono_frames).max()
+    to_ref32 = _diffs(port32, ref, mono_frames).max()
+    print(f"{stream}: largest per-frame difference, port vs reference "
+          f"{to_ref:.4f} m, port vs float32 port {to_self:.4f} m, float32 "
+          f"port vs reference {to_ref32:.4f} m")
+    assert port32["states"] == port["states"]
+    assert to_self >= 0.5 * to_ref, (to_self, to_ref)
+    assert max(to_ref, to_self, to_ref32) < MAX_DIFF
+
+
+# m: the JAX package's 7-DoF ATE on the card configuration at 640x480,
+# the reading that chip_smoke.MONO_GEOFLOW_ATE is set from
+REF_ATE_640 = 0.06182
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("scale", [0.5, 1.0], ids=["320x240", "640x480"])
+def test_mono_geoflow_card_config(scale):
+    import chip_smoke
+    fps = chip_smoke.MONO_FPS
+    tcfg = chip_smoke.mono_geoflow_config(scale)
     orb = tcfg.frame.orb
     jcfg = JSys(frame=JFrame(orb=JOrb(**dataclasses.asdict(orb)), bf=0.0,
                              n_of_slots=256),
@@ -243,15 +311,15 @@ def test_mono_geoflow_card_config_at_320():
                                                  "use_odom")})
     cam = JS.Camera(fx=tcfg.fx, fy=tcfg.fy, cx=tcfg.cx, cy=tcfg.cy,
                     width=orb.width, height=orb.height)
-    seq = JS.SyntheticSequence(JS.SyntheticWorld(cam), fps=MS.FPS)
+    seq = JS.SyntheticSequence(JS.SyntheticWorld(cam), fps=fps)
     frames = []
     for i in range(120):
-        g, _, (rot_cw, t_cw) = seq.frame(i / MS.FPS)
+        g, _, (rot_cw, t_cw) = seq.frame(i / fps)
         rwc = np.asarray(rot_cw, np.float64).T
         twc = np.eye(4)
         twc[:3, :3] = rwc
         twc[:3, 3] = -rwc @ np.asarray(t_cw, np.float64)
-        frames.append(dict(t=i / MS.FPS, gray=np.array(g), gt=twc))
+        frames.append(dict(t=i / fps, gray=np.array(g), gt=twc))
     ref = _run(JSlam(jcfg), frames, odom=True)
     port = _run(SlamSystem(tcfg, "cpu"), frames, odom=True)
     assert port["init"] == ref["init"] is not None
@@ -263,5 +331,12 @@ def test_mono_geoflow_card_config_at_320():
         n = len(run["traj"]) * 3 // 4
         ates[name] = ate_rmse(run["traj"][-n:], gt[-n:],
                               with_scale=True)["ate_rmse"]
-    print("7-DoF ATE over the last 3/4", ates)
-    assert ates["ref"] < 0.06 and ates["port"] < 0.06, ates
+    print(f"{orb.width}x{orb.height}: 7-DoF ATE over the last 3/4", ates)
+    if scale == 0.5:
+        assert ates["ref"] < 0.06 and ates["port"] < 0.06, ates
+    else:
+        # the reference misses 6 cm here too; the card's gate is its
+        # reading plus 5 mm
+        assert abs(ates["ref"] - REF_ATE_640) < 1e-5, ates
+        assert REF_ATE_640 + 0.005 == chip_smoke.MONO_GEOFLOW_ATE
+        assert ates["port"] < chip_smoke.MONO_GEOFLOW_ATE, ates
