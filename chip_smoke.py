@@ -67,7 +67,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      N_FRAMES frames at 10 fps, a fresh map: the same gates, optical-flow points
      appended, at least one accepted ICP prediction, K2 launched, the fused
      K1 exactly once per frame and the fused K3 once per frame after the
-     first;
+     first and once more per staged re-run of a failed frame;
   9. reloc: relocalization at full width with the shipped vocabulary (see
      phase_reloc), through the façade's default (fused) recovery: a
      relocalization brings the lost system back to OK without a new map,
@@ -108,8 +108,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      accepted, OF points appended, the blank frames RECENTLY_LOST and
      odometry read on >= 1 frame, valid plane factors on >= 50% of the
      frames after the second KF, a global map of > 500 points, the fused
-     K1 once per frame and K3 once per frame after the first; ms a frame,
-     make_plane_obs ms, the frames that read odometry;
+     K1 once per frame and K3 once per frame after the first and once
+     more per staged re-run; ms a frame, make_plane_obs ms, the frames that
+     read odometry;
  14. inertial_geoflow: inertial_config() with use_icp, use_of and
      n_of_slots 256 over INERTIAL_GEOFLOW_FRAMES frames: the gates of 12
      but VIBA2 (7.5 s reach VIBA1 only; host syncs over GEOFLOW_SYNC), ICP
@@ -195,13 +196,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      100 (README's first command, 640x480) and tools/evaluate_ate.main on
      what it wrote: OK, ATE < 5 cm, the two ATEs equal, the fused K1 once a
      frame.
+ 24. fused_step: pipeline/fused.frame_step on the card at bench.py's
+     configuration with ICP, lidar and 256 OF slots (fused_step_config):
+     a map tracked over FUSED_FRAMES frames, then the next frame in seven
+     variants (off, raw, kf, prior, OF+ICP, OF+ICP+lidar with kf,
+     recovery) under torch.cuda.set_sync_debug_mode("error") ("warn" and
+     at most one call for the recovery): each tracked, the VI accepted in
+     kf and prior, the recovery recovered, the kf poses within 2 cm and
+     1 deg of the façade's own step on the frame; host and device ms of
+     each (see phase_fused_step).
+The paths rgbd, of_icp, g1 (their last PATH_SYNC frames), hard
+(HARD_SYNC), inertial (SYNC_WINDOW) and inertial_geoflow (GEOFLOW_SYNC)
+count host syncs inside the entry points with CUDA sync debugging, apart
+for the frames through the fused frame step without a KF, the KF frames
+and the others (SyncSplit), beside the readings before the fused step
+(SYNCS_BEFORE); the fused frames without a KF must average at most
+MAX_FUSED_SYNCS.
 The inertial path (12) also writes its session before frame SESSION_AT,
 restores it into a fresh SlamSystem and drives the last frames again: the
 restored counts equal the saved ones, OK with the IMU initialized, the
 final position within 5 cm of the unbroken run's and the KF counts within
 2 (the JAX package's test_persistence bounds); it prints the file's size,
 the save and load seconds and the largest position gap.
-Phases 1-6c run in this process. The path phases 7-23 then run in three
+Phases 1-6c run in this process. The path phases 7-24 then run in three
 processes side by side on the same card (PATH_GROUPS; each a group of
 paths one after another, its output printed when it ends), and last, with
 the card to itself again, K4 is held to plain and timed at the two shapes
@@ -222,7 +239,7 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the seventeen paths and nothing else, and K4's `path_shapes`) with
+over the eighteen paths and nothing else, and K4's `path_shapes`) with
 `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
@@ -259,6 +276,8 @@ from geoflowslam_tpu_torch.ops import stereo as ST
 from geoflowslam_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes
 from geoflowslam_tpu_torch.parallel import dist_ba
 from geoflowslam_tpu_torch.parallel.dist_ba import LandMesh
+from geoflowslam_tpu_torch.imu import preintegration as PRE
+from geoflowslam_tpu_torch.pipeline import fused as FU
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.pipeline import mono_init as MI
@@ -296,6 +315,7 @@ OF_FPS = 10.0
 G1_BLANK = (20, 21)   # g1 frames without texture or depth (odometry read)
 RECOVER_FPS = 10.0   # the reloc and merge paths, as their JAX tests stage them
 HARD_FRAMES = 600    # the hard path: 20 s, into the first texture-poor window
+HARD_SYNC = (60, 90)   # hard frames whose host syncs are counted
 INERTIAL_FRAMES = 360   # the inertial path: 12 s at 30 fps (IMU init ~1 s,
                         # VIBA1 at +5 s, VIBA2 at +10 s); 420 before the
                         # stereo paths came
@@ -901,7 +921,7 @@ def phase_entry_points(summary):
 def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
              n_frames=N_FRAMES, cam=None, ate_gate=0.05, tail=1.0,
              with_scale=True, rpe_gate=0.03, stop=None, scale=1.0,
-             init=None):
+             init=None, sync=None):
     """Drive SlamSystem over n_frames of the port's synthetic room (the
     camera `cam`, by default cfg's pinhole; the trajectory's amplitude
     `scale`) and hold it to the accuracy gates: state OK, >= 3 KFs, finite
@@ -914,7 +934,9 @@ def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
     inputs)` tracks it (default: track_rgbd; a hook may queue odometry,
     pass a second image or IMU samples); the run ends early after the
     first frame i for which `stop(slam, i)` holds; `init(slam)` sees the
-    system before its first frame. Returns the system."""
+    system before its first frame. With `sync` = (first, end) the host
+    syncs of frames first..end-1 are counted by kind (SyncSplit, gated),
+    and those frames are left out of the times. Returns the system."""
     dev = torch.device("cuda")
     if cam is None:
         cam = Camera(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
@@ -942,13 +964,17 @@ def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
     slam = SlamSystem(cfg, device=dev)
     if init is not None:
         init(slam)
+    split = SyncSplit(slam) if sync is not None else None
     kernels.reset_launch_counts()
     ms_per_frame = []
     for i, inputs in enumerate(frames):
+        if split is not None:
+            split.active = sync[0] <= i < sync[1]
         t1 = time.perf_counter()
         track(slam, i, i / fps, inputs)
         torch.cuda.synchronize()
-        ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
+        if split is None or not split.active:
+            ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
         if stop is not None and stop(slam, i):
             n_frames, gt = i + 1, gt[:i + 1]
             break
@@ -969,7 +995,8 @@ def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
           f"{ate['ate_rmse'] * 100:.3f} cm"
           f"{' (7 DoF)' if with_scale else ''}, RPE "
           f"{rp['rpe_trans'] * 100:.3f} cm / {rp['rpe_rot_deg']:.4f} deg")
-    print(f"[{tag}] ms/frame (frames 2..{n_frames}): median "
+    print(f"[{tag}] ms/frame (frames 2..{n_frames}"
+          f"{'' if sync is None else ' but the counted ones'}): median "
           f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
           f"first frame {ms_per_frame[0]:.1f} ms")
     if stats["state"] != "OK":
@@ -985,12 +1012,21 @@ def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
     slam.ms_per_frame = ms_per_frame
     _count(summary, tag, launches, n_frames,
            expect(slam) if callable(expect) else expect)
+    if split is not None:
+        split.report(tag, sync[0], sync[1] - 1)
     return slam
+
+
+PATH_SYNC = 30   # the last frames of rgbd, of_icp and g1 whose syncs count
+
+
+def _last(n_frames):
+    return (n_frames - PATH_SYNC, n_frames)
 
 
 def phase_rgbd(summary):
     run_path("rgbd", SystemConfig(), FPS, summary,
-             {"gated_hamming_search": None})
+             {"gated_hamming_search": None}, sync=_last(N_FRAMES))
 
 
 def phase_of_icp(summary):
@@ -998,10 +1034,13 @@ def phase_of_icp(summary):
     cfg = dataclasses.replace(
         base, use_of=True, use_icp=True,
         frame=dataclasses.replace(base.frame, n_of_slots=256))
-    # the optical-flow stage runs on every frame that has a predecessor
+    # the optical-flow stage runs on every frame that has a predecessor,
+    # and again on a failed frame's staged re-run
     slam = run_path("of_icp", cfg, OF_FPS, summary,
-                    {"gated_hamming_search": None,
-                     "lk_pyramid": N_FRAMES - 1})
+                    lambda s: {"gated_hamming_search": None,
+                               "lk_pyramid": N_FRAMES - 1
+                               + s.n_staged_reruns},
+                    sync=_last(N_FRAMES))
     n3d, n2d = slam.of_appended
     n_icp = slam.n_icp_accepted
     print(f"[of_icp] OF appended {n3d} 3D-stream and {n2d} 2D-stream points;"
@@ -1026,7 +1065,9 @@ def phase_g1(summary):
     appended, the blank frames lost and odometry read on >= 1 frame,
     valid plane factors on >= 50% of the frames after the second KF, a
     global map of > 500 points, the fused K1 exactly once per frame, the
-    fused K3 once per frame after the first, K2 launched. Prints ms per
+    fused K3 once per frame after the first and once more per staged
+    re-run (the blank frame that fails the fused step), K2 launched. Prints
+    ms per
     frame (median, p90), make_plane_obs ms (synchronised, median, p90) and
     the frames whose prediction read odometry."""
     base = SystemConfig()
@@ -1057,9 +1098,10 @@ def phase_g1(summary):
     LD.make_plane_obs = timed_plane_obs
     try:
         slam = run_path("g1", cfg, OF_FPS, summary,
-                        {"gated_hamming_search": None,
-                         "lk_pyramid": G1_FRAMES - 1}, track=track,
-                        n_frames=G1_FRAMES)
+                        lambda s: {"gated_hamming_search": None,
+                                   "lk_pyramid": G1_FRAMES - 1
+                                   + s.n_staged_reruns}, track=track,
+                        n_frames=G1_FRAMES, sync=_last(G1_FRAMES))
     finally:
         LD.make_plane_obs = make_plane_obs
     n_kfs.append(int(slam.ms.kf_valid.sum()))
@@ -2133,14 +2175,17 @@ def phase_hard(summary, voc):
     slam = SlamSystem(cfg, dev, vocab=voc)
     attempts = []
     _timed(slam, "_reloc_attempt", attempts)
+    split = SyncSplit(slam)
     kernels.reset_launch_counts()
     gt, ms_per_frame = [], []
     for i in range(HARD_FRAMES):
         t_abs = 1.4e9 + ts[i]
+        split.active = HARD_SYNC[0] <= i < HARD_SYNC[1]
         t1 = time.perf_counter()
         slam.track_rgbd(bufs[i], None, t_abs)
         torch.cuda.synchronize()
-        ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
+        if not split.active:
+            ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
         gt.append((t_abs, twc_gt[i]))
     launches = dict(kernels.launch_counts)
     stats = slam.map_stats()
@@ -2155,7 +2200,8 @@ def phase_hard(summary, voc):
           f"n_recovered {slam.n_recovered}, n_reloc {slam.n_reloc}, "
           f"{len(attempts)} relocalization attempts, "
           f"kf_stall_warnings {slam.kf_stall_warnings}")
-    print(f"[hard] ms/frame (frames 2..{HARD_FRAMES}): median "
+    print(f"[hard] ms/frame (frames 2..{HARD_FRAMES} but the counted "
+          f"ones): median "
           f"{np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
           f"New_KF median {np.median(slam.timers.samples['New_KF']):.2f} ms "
           f"over {len(slam.timers.samples['New_KF'])} KFs")
@@ -2171,6 +2217,7 @@ def phase_hard(summary, voc):
         raise AssertionError(f"{slam.kf_stall_warnings} KF-stall warnings")
     _count(summary, "hard", launches, HARD_FRAMES,
            {"gated_hamming_search": None, "hamming_best2": len(attempts)})
+    split.report("hard", HARD_SYNC[0], HARD_SYNC[1] - 1)
 
 
 def inertial_config() -> SystemConfig:
@@ -2200,6 +2247,65 @@ def _count_syncs(fn):
             torch.cuda.set_sync_debug_mode("default")
     n = sum("synchroniz" in str(w.message) for w in caught)
     return out, n
+
+
+SYNCS_BEFORE = {"rgbd": 3.0, "of_icp": 3.0, "g1": 3.0, "hard": 3.0,
+                "inertial": 34.97, "inertial_geoflow": 55.13}
+# host syncs a frame before the fused frame step (PERF.md §5: RGB-D 3 a
+# frame by count, the inertial paths measured with CUDA sync debugging)
+MAX_FUSED_SYNCS = 1.0   # gate: host syncs a fused frame without a KF
+
+
+class SyncSplit:
+    """Host syncs inside the system's RGB-D entry points (CUDA sync
+    debugging) while `active`, kept apart for the frames that went through
+    the fused frame step without a KF, the frames that inserted a KF, and
+    the others (staged, initialization). Wraps the instance's entry points
+    and its fused step; the calling loop's own reads between frames are
+    not counted."""
+
+    def __init__(self, slam):
+        self.slam, self.fused, self.active = slam, False, False
+        self.counts = {"fused": [], "kf": [], "other": []}
+        track_fused = slam._track_fused
+
+        def flagged(*a, **k):
+            self.fused = True
+            return track_fused(*a, **k)
+        slam._track_fused = flagged
+        for name in ("track_rgbd", "track_rgbd_inertial"):
+            setattr(slam, name, self._counted(getattr(slam, name)))
+
+    def _counted(self, entry):
+        def counted(*a, **k):
+            if not self.active:
+                return entry(*a, **k)
+            self.fused = False
+            kfs = self.slam._gen_counter
+            out, n = _count_syncs(lambda: entry(*a, **k))
+            kind = ("kf" if self.slam._gen_counter != kfs
+                    else "fused" if self.fused else "other")
+            self.counts[kind].append(n)
+            return out
+        return counted
+
+    def report(self, tag, first, last):
+        """Print the split and gate the fused frames without a KF (at most
+        MAX_FUSED_SYNCS a frame on average, over at least 10 of them)."""
+        mean = {k: (float(np.mean(v)) if v else float("nan"), len(v))
+                for k, v in self.counts.items()}
+        print(f"[{tag}] host syncs a frame over frames {first}..{last}: "
+              f"fused without a KF {mean['fused'][0]:.2f} "
+              f"({mean['fused'][1]} frames), KF frames {mean['kf'][0]:.2f} "
+              f"({mean['kf'][1]}), other {mean['other'][0]:.2f} "
+              f"({mean['other'][1]}); {SYNCS_BEFORE[tag]:.2f} a frame before "
+              f"the fused step")
+        if mean["fused"][1] < 10 or not mean["fused"][0] <= MAX_FUSED_SYNCS:
+            raise AssertionError(
+                f"{tag}: {mean['fused'][0]} host syncs a fused frame without "
+                f"a KF over {mean['fused'][1]} frames (gate "
+                f"{MAX_FUSED_SYNCS} over >= 10)")
+        return mean
 
 
 def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
@@ -2249,7 +2355,7 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
         return out
     LM.vi_ba_step = timed_vi_ba
     kernels.reset_launch_counts()
-    by_mode, n_syncs = {}, 0
+    by_mode, split = {}, SyncSplit(slam)
     try:
         for i in range(n_frames):
             if session is not None and i == session["at"]:
@@ -2266,11 +2372,8 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
                 return slam.track_rgbd_inertial(bufs[i], None, *imu[i],
                                                 ts[i])
             t1 = time.perf_counter()
-            if sync[0] <= i < sync[1]:
-                _, n = _count_syncs(step)
-                n_syncs += n
-            else:
-                step()
+            split.active = sync[0] <= i < sync[1]
+            step()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t1) * 1000.0
             mode = next((m for m, n in slam.imu_modes.items()
@@ -2305,10 +2408,9 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
         v_kw = [m for k, m in viba if k == kw]
         print(f"[{tag}] VI-BA kw {kw}: {len(v_kw)} runs, median "
               f"{np.median(v_kw):.2f} ms, max {np.max(v_kw):.2f} ms")
-    n_win = sync[1] - sync[0]
-    print(f"[{tag}] host syncs a frame over frames {sync[0]}.."
-          f"{sync[1] - 1}: {n_syncs / n_win:.2f}; {len(checks)} loop "
-          f"checks, {len(attempts)} relocalization attempts")
+    print(f"[{tag}] {len(checks)} loop checks, {len(attempts)} "
+          f"relocalization attempts")
+    split.report(tag, sync[0], sync[1] - 1)
     if stats["state"] != "OK" or stats["n_maps"] != 1:
         raise AssertionError(f"{tag} path ended {stats}")
     if not (imu_t.initialized and imu_t.viba1_done
@@ -2319,6 +2421,162 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
     if not ate["ate_rmse"] < 0.05:
         raise AssertionError(f"{tag} ATE {ate['ate_rmse']} m >= 5 cm")
     return slam, launches, len(checks) + len(attempts)
+
+
+FUSED_FRAMES = 50   # the fused_step phase's map: 1.7 s at 30 fps (the IMU
+                    # initializes at ~1.1 s)
+FUSED_TURN = 0.6    # rad of yaw added to the recovery variant's prediction
+
+
+def fused_step_config() -> SystemConfig:
+    """inertial_config() (bench.py's operating point) with use_icp and
+    use_lidar and 256 reserved OF slots, the OF stage itself off, so that
+    one map, tracked by its ORB features, serves every variant of the frame
+    step (the OF variants append into the reserved slots)."""
+    base = inertial_config()
+    return dataclasses.replace(
+        base, use_icp=True, use_lidar=True,
+        frame=dataclasses.replace(base.frame, n_of_slots=256,
+                                  lidar_features=True))
+
+
+def _fused_call(args, kw, allowed: int):
+    """One frame_step call under CUDA sync debugging ("error" when no sync
+    is allowed, else "warn" and counted): (out, host ms, device ms between
+    CUDA events around the call, syncs)."""
+    import warnings
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("error" if allowed == 0 else "warn")
+        try:
+            t0 = time.perf_counter()
+            e0.record()
+            out = FU.frame_step(*args, **kw)
+            e1.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    e1.synchronize()
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, host_ms, e0.elapsed_time(e1), n
+
+
+def phase_fused_step(summary, voc):
+    """pipeline/fused.frame_step on the card at full width: a map built by
+    tracking FUSED_FRAMES frames of the synthetic room at 30 fps with 200 Hz
+    IMU through SlamSystem.track_rgbd_inertial at fused_step_config() (m12
+    buffers on the card, the shipped vocabulary, ICP and lidar on, 256 OF
+    slots reserved), then the next frame
+    through frame_step directly from the system's state in seven variants:
+    off, raw, kf, prior (under the kf variant's marginal), OF+ICP, OF+ICP+
+    lidar with kf, and recovery (visual, the motion model turned by
+    FUSED_TURN rad so that the track fails: the re-search and the
+    relocalization run). Each variant runs once to warm the per-device
+    caches and once measured, under torch.cuda.set_sync_debug_mode("error")
+    (the recovery variant under "warn", counted). Gates: no synchronizing
+    call (at most 1 in the recovery variant), a finite packet, every
+    tracked variant OK with aux 0, the VI accepted in kf and prior, the
+    recovery variant recovered (aux >= 2), the kf and OF+ICP+lidar poses
+    within 2 cm and 1 deg of the façade's own fused step on that frame;
+    the map's frames launch the fused K1 once a frame, K2, K4 once per
+    loop check and relocalization attempt, and K3 never (their OF stage is
+    off). Prints host ms and device ms of each measured call."""
+    dev = torch.device("cuda")
+    cfg = fused_step_config()
+    seq = _room(cfg, FPS)
+    n = FUSED_FRAMES
+    ts = np.arange(n + 1) / FPS
+    bufs, imu = [], [None]
+    for i in range(n + 1):
+        g, d, _ = seq.frame(ts[i])
+        bufs.append(FC.pack_m12_torch(g, d))
+        if i > 0:
+            imu.append(tuple(x.cpu().numpy() for x in seq.imu_between(
+                ts[i - 1], ts[i], cfg.imu.max_samples_per_frame)))
+    slam = SlamSystem(cfg, dev, vocab=voc)
+    checks, attempts = [], []
+    _timed(slam.loop_closer, "_verify", checks)
+    _timed(slam, "_reloc_attempt", attempts)
+    kernels.reset_launch_counts()
+    for i in range(n):
+        if i == 0:
+            slam.track_rgbd(bufs[i], None, ts[i])
+        else:
+            slam.track_rgbd_inertial(bufs[i], None, *imu[i], ts[i])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    stats = slam.map_stats()
+    print(f"[fused_step] map of {n} frames: {stats}, IMU initialized "
+          f"{slam.imu.initialized}, frames per imu_mode {slam.imu_modes}")
+    if stats["state"] != "OK" or not slam.imu.initialized:
+        raise AssertionError(f"fused_step map: {stats}")
+    _count(summary, "fused_step", launches, n,
+           {"gated_hamming_search": None,
+            "hamming_best2": len(checks) + len(attempts)})
+    del slam._reloc_attempt    # the timing wrapper synchronises
+
+    # the next frame's inputs, as the façade stages them
+    images = (bufs[n], None)
+    p_host = PRE.preintegrate(*(PRE.host_f32(x) for x in imu[n]),
+                              slam.imu.bias, slam.imu.calib)
+    p_frame = PRE.to_device(p_host, dev)
+    off = dict(use_of=False, use_icp=False, use_lidar=False)
+    geo = dict(use_of=True, use_icp=True, use_lidar=False)
+    full = dict(use_of=True, use_icp=True, use_lidar=True)
+    turn = lie.so3_exp(torch.tensor([0.0, FUSED_TURN, 0.0], device=dev))
+    results = {}
+    for name, mode, flags, recovery in (
+            ("off", "off", off, False), ("raw", "raw", off, False),
+            ("kf", "kf", off, False), ("prior", "prior", off, False),
+            ("of_icp", "off", geo, False),
+            ("of_icp_lidar_kf", "kf", full, False),
+            ("recovery", "off", off, True)):
+        if name == "prior":
+            slam._vi_prior = results["kf"][0].marg
+        args, kw = slam._fused_inputs(
+            images, mode, None if mode == "off" else p_frame, recovery)
+        kw.update(flags)
+        if recovery:
+            args = list(args)
+            args[5] = turn @ args[5]          # vel_rot: a wrong prediction
+            args[7] = True                    # use_vel
+        for _ in range(2):
+            out, host_ms, dev_ms, n_sync = _fused_call(
+                args, kw, 1 if recovery else 0)
+        pkt = out.host_pkt.cpu().numpy()
+        results[name] = (out, pkt)
+        print(f"[fused_step] {name}: host {host_ms:.2f} ms, device "
+              f"{dev_ms:.2f} ms (CUDA events around the call), "
+              f"{n_sync} synchronizing calls; n_mm {pkt[0]:.0f}, n_lm "
+              f"{pkt[1]:.0f}, n_vi {pkt[2]:.0f}, vi_ok {pkt[3]:.0f}, aux "
+              f"{pkt[FU.PKT_AUX]:.0f}, relocalized {pkt[FU.PKT_RELOC]:.0f}")
+        if not np.all(np.isfinite(pkt)) or n_sync > (1 if recovery else 0):
+            raise AssertionError(f"fused_step {name}: {n_sync} syncs, "
+                                 f"packet {pkt}")
+        tracked = max(pkt[1], pkt[2] if pkt[3] > 0.5 else -1)
+        if recovery:
+            if pkt[FU.PKT_AUX] < 2.0:
+                raise AssertionError(f"fused_step recovery did not recover: "
+                                     f"{pkt}")
+        elif tracked < cfg.min_inliers_ok or pkt[FU.PKT_AUX] != 0.0:
+            raise AssertionError(f"fused_step {name} did not track: {pkt}")
+        if mode in ("kf", "prior") and pkt[3] < 0.5:
+            raise AssertionError(f"fused_step {name}: VI not accepted")
+    slam._vi_prior = None
+    twc = slam.track_rgbd_inertial(bufs[n], None, *imu[n], ts[n])
+    for name in ("kf", "of_icp_lidar_kf"):
+        m = results[name][1][4:16].reshape(3, 4)
+        gap = float(np.linalg.norm(m[:, 3] - twc[:3, 3]))
+        ang = float(np.degrees(np.arccos(np.clip(
+            (np.trace(m[:, :3].T @ twc[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))))
+        print(f"[fused_step] {name} against the façade's step on the frame: "
+              f"{gap * 100:.3f} cm, {ang:.4f} deg")
+        if gap > 0.02 or ang > 1.0:
+            raise AssertionError(f"fused_step {name} {gap} m, {ang} deg from "
+                                 "the façade's")
 
 
 def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
@@ -2682,13 +2940,14 @@ def _check_edge_icp(prob, args):
 # inertial_geoflow and the stereo paths and g1). The kernels are
 # timed before the paths start, and the monocular path's K4 launches after
 # they end, with the card to themselves.
-PATH_GROUPS = (("hard", "merge", "merge_mesh", "of_icp", "rgbd", "reloc"),
+PATH_GROUPS = (("hard", "merge", "merge_mesh", "of_icp", "rgbd", "reloc",
+                "fused_step"),
                ("inertial", "mono_inertial", "mono", "dataset",
                 "quickstart"),
                ("inertial_geoflow", "stereo_inertial", "g1",
                 "stereo_fisheye", "mono_geoflow", "mesh_gba"))
 VOCAB_PATHS = ("reloc", "merge", "merge_mesh", "hard", "inertial",
-               "inertial_geoflow")
+               "inertial_geoflow", "fused_step")
 PATH_THREADS = 2     # torch's CPU threads in each path process
 
 

@@ -1,20 +1,24 @@
 """Conversion of the JAX package's state into the port's tensors.
 
 The inputs are the reference's NamedTuples (FeatureSet, FrameData,
-MapState, TrackResult, Vocabulary, KFDatabase) or anything else with the
-same fields whose leaves numpy can read; nothing here imports the JAX
-package. Descriptor words (uint32 in the reference) become int32 tensors
-holding the same bits.
+MapState, TrackResult, Vocabulary, KFDatabase, BodyState, Preintegrated,
+the lidar LocalMap) and the frame step's state (the local-window masks) or
+anything else with the same fields whose leaves numpy can read; nothing
+here imports the JAX package. Descriptor words (uint32 in the reference)
+become int32 tensors holding the same bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from geoflowslam_tpu_torch.imu.preintegration import Preintegrated
 from geoflowslam_tpu_torch.ops.extractor import FeatureSet
+from geoflowslam_tpu_torch.pipeline.lidar_mapping import LocalMap
 from geoflowslam_tpu_torch.pipeline.tracking import TrackResult
 from geoflowslam_tpu_torch.retrieval.kf_database import KFDatabase
 from geoflowslam_tpu_torch.retrieval.vocab import Vocabulary
+from geoflowslam_tpu_torch.solvers.inertial import BodyState
 from geoflowslam_tpu_torch.state.frame import FrameData
 from geoflowslam_tpu_torch.state.map_state import MapState
 
@@ -67,3 +71,29 @@ def vocabulary(voc, device) -> Vocabulary:
 
 def kf_database(db, device) -> KFDatabase:
     return _convert(KFDatabase, db, device)
+
+
+def body_state(bs, device) -> BodyState:
+    return _convert(BodyState, bs, device)
+
+
+def preintegrated(p, device) -> Preintegrated:
+    """The deltas, Jacobians, covariance and bias on `device` (float32), the
+    raw measurements dropped, as the frame step takes a frame gap."""
+    kw = {f: to_tensor(getattr(p, f), device).float()
+          for f in Preintegrated._fields if not f.startswith("meas_")}
+    return Preintegrated(meas_acc=None, meas_gyro=None, meas_dt=None, **kw)
+
+
+def local_map(lm, device) -> LocalMap:
+    """The lidar stage's sliding local map (kf_id as long)."""
+    return LocalMap(pts=to_tensor(lm.pts, device),
+                    valid=to_tensor(lm.valid, device),
+                    kf_id=to_tensor(lm.kf_id, device).long())
+
+
+def local_masks(masks, device):
+    """(kf_mask, mp_mask, cand_idx) of the local window (cand_idx as long)."""
+    kf_mask, mp_mask, cand_idx = masks
+    return (to_tensor(kf_mask, device), to_tensor(mp_mask, device),
+            to_tensor(cand_idx, device).long())

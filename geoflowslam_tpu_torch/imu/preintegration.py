@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.utils.device_const import upload
 
 GRAVITY = np.array([0.0, 0.0, -9.81], np.float32)   # IMU::GRAVITY_VALUE
 _EPS = np.float32(1e-8)
@@ -232,10 +233,11 @@ _DEVICE_FIELDS = (("dt", ()), ("dR", (3, 3)), ("dV", (3,)), ("dP", (3,)),
 
 def to_device(p: Preintegrated, device) -> Preintegrated:
     """The deltas, Jacobians, covariance and bias of `p` on `device`, in one
-    host-to-device copy (views of one packed tensor)."""
+    host-to-device copy that the host does not wait for (views of one packed
+    tensor)."""
     flat = np.concatenate([np.asarray(getattr(p, f), _F).reshape(-1)
                            for f, _ in _DEVICE_FIELDS])
-    buf = torch.from_numpy(flat).to(device)
+    buf = upload(flat, device)
     out, i = {}, 0
     for f, shape in _DEVICE_FIELDS:
         n = int(np.prod(shape)) if shape else 1

@@ -1,6 +1,6 @@
 """Synthetic dataset exporter: TUM-RGBD / EuRoC-mav0 shaped directories
 (port of geoflowslam_tpu/io/fixtures.py, rendered by the port's
-io/synthetic on `device`, the CPU by default).
+io/synthetic on the `device` each exporter is given).
 
 Writes the exact on-disk layouts the dataset drivers consume — the same
 glue the reference binaries exercise on every run
@@ -76,8 +76,8 @@ def _pose_lines(ts, rot_cw, t_cw):
     return lines
 
 
-def _render_sequence(n_frames, fps, width, height, imu_rate, t0,
-                     device="cpu"):
+def _render_sequence(n_frames, fps, width, height, imu_rate, t0, *,
+                     device):
     """Render frames + IMU from the smooth synthetic trajectory on `device`
     (the tests use 320x240 on the CPU); every array comes back to the
     host."""
@@ -107,12 +107,12 @@ def export_tum_rgbd(out_dir: str, n_frames: int = 30, fps: float = 10.0,
                     width: int = 320, height: int = 240,
                     imu_rate: float = 200.0, t0: float = 1.4e9,
                     n_features: int = 300, depth_steps: float = 5000.0,
-                    n_levels: int = 4, device="cpu"):
+                    n_levels: int = 4, *, device):
     """Write a TUM-RGBD-shaped sequence directory + settings.yaml; returns
     (seq_dir, settings_path, assoc_path). `n_levels` is the settings'
     ORBextractor.nLevels."""
     cam, frames, imu_rows = _render_sequence(n_frames, fps, width, height,
-                                             imu_rate, t0, device)
+                                             imu_rate, t0, device=device)
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "imu"), exist_ok=True)
@@ -167,10 +167,11 @@ IMU.InitMinTime: 0.5
 
 def export_euroc(out_dir: str, n_frames: int = 40, fps: float = 10.0,
                  width: int = 320, height: int = 240,
-                 imu_rate: float = 200.0, t0: float = 1.4e9, device="cpu"):
+                 imu_rate: float = 200.0, t0: float = 1.4e9, *,
+                 device):
     """Write an EuRoC-mav0-shaped sequence directory; returns seq_dir."""
     cam, frames, imu_rows = _render_sequence(n_frames, fps, width, height,
-                                             imu_rate, t0, device)
+                                             imu_rate, t0, device=device)
     cam_dir = os.path.join(out_dir, "mav0", "cam0", "data")
     imu_dir = os.path.join(out_dir, "mav0", "imu0")
     os.makedirs(cam_dir, exist_ok=True)

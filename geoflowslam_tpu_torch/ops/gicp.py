@@ -5,7 +5,9 @@ Correspondences come from the brute-force kNN of ops/pointcloud.py over
 downsampled padded clouds (P <= 4096); each iteration solves one 6x6 system
 on SE(3) with masked correspondences. Solves and inverses use the `_ex`
 forms, which do not synchronise with the host to check for errors; a
-non-finite step is zeroed as in the reference.
+non-finite step is zeroed as in the reference. The NDT voxel covariances
+take the closed-form 3x3 eigendecomposition (math/sym_eig.eigh3), not
+`torch.linalg.eigh`, which waits for the device on CUDA.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.math.sym_eig import eigh3
 from geoflowslam_tpu_torch.ops import pointcloud as pc
 
 
@@ -132,7 +135,7 @@ def build_ndt_grid(tgt: torch.Tensor, tgt_valid: torch.Tensor,
     cov = seg_sum(torch.einsum("p,pi,pj->pij", w, d, d))
     cov = cov / torch.clamp_min(cnt[:, None, None], 1.0)
     vvalid = cnt >= 5.0
-    vals, vecs = torch.linalg.eigh(cov)
+    vals, vecs = eigh3(cov)
     floor = torch.clamp_min(vals[:, 2:3] * 1e-2, 1e-6)
     vals_r = torch.maximum(vals, floor)
     cov_r = torch.einsum("vij,vj,vkj->vik", vecs, vals_r, vecs)

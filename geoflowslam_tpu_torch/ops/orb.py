@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from geoflowslam_tpu_torch.ops.pyramid import gaussian_kernel1d
+from geoflowslam_tpu_torch.utils.device_const import device_constant
 
 PATCH_SIZE = 31
 HALF_PATCH = 15
@@ -86,14 +87,16 @@ def extract_patches(img: torch.Tensor, xy: torch.Tensor,
 def orientation_from_patches(patches, fx, fy) -> torch.Tensor:
     """Intensity-centroid angles from the 31x31 disc around each keypoint
     (start clamped into the patch, as lax.dynamic_slice clamps)."""
-    mx, my = circular_masks()
+    dev = patches.device
+    mx = device_constant("orb_mask_x", lambda: circular_masks()[0], dev)
+    my = device_constant("orb_mask_y", lambda: circular_masks()[1], dev)
     d = 2 * HALF_PATCH + 1
     lim = patches.shape[1] - d
     cx = torch.clamp(torch.round(fx).long() - HALF_PATCH, 0, lim)
     cy = torch.clamp(torch.round(fy).long() - HALF_PATCH, 0, lim)
     disc = _slices(patches, cy, cx, d)
-    m10 = torch.einsum("nrc,rc->n", disc, torch.from_numpy(mx).to(disc.device))
-    m01 = torch.einsum("nrc,rc->n", disc, torch.from_numpy(my).to(disc.device))
+    m10 = torch.einsum("nrc,rc->n", disc, mx.to(disc.dtype))
+    m01 = torch.einsum("nrc,rc->n", disc, my.to(disc.dtype))
     return torch.atan2(m01, m10)
 
 
@@ -130,7 +133,7 @@ def descriptors_from_patches(blurred: torch.Tensor, fx, fy,
     sample = round(R(angle) pattern + in-patch position) - margin, clipped
     to the blurred patch."""
     bp = BLUR_PATCH
-    pat = torch.from_numpy(get_pattern()).to(blurred.device, torch.float32)
+    pat = device_constant("orb_pattern", get_pattern, blurred.device)
     ca, sa = torch.cos(angles), torch.sin(angles)
     pp = torch.cat([pat[:, 0:2], pat[:, 2:4]], dim=0)            # [512, 2]
     rx = pp[None, :, 0] * ca[:, None] - pp[None, :, 1] * sa[:, None]

@@ -13,10 +13,9 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import math
-
 import torch
 
+from geoflowslam_tpu_torch.math import sym_eig as SE
 from geoflowslam_tpu_torch.ops.indexing import topk_stable
 
 INVALID_KEY = 0x7FFFFFFF
@@ -128,59 +127,16 @@ def knn_indices(query: torch.Tensor, q_valid: torch.Tensor,
     return idx, best, ok
 
 
-def _det3(a: torch.Tensor) -> torch.Tensor:
-    """Determinant of [..., 3, 3] by cofactors along the first row."""
-    return (a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2]
-                            - a[..., 1, 2] * a[..., 2, 1])
-            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2]
-                              - a[..., 1, 2] * a[..., 2, 0])
-            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1]
-                              - a[..., 1, 1] * a[..., 2, 0]))
-
-
-def _trig_eig(a: torch.Tensor):
-    """(q, p, phi) of the trigonometric eigenvalue method for symmetric
-    3x3 batches: eigenvalues q + 2 p cos(phi + 2 pi j / 3)."""
-    q = (a[..., 0, 0] + a[..., 1, 1] + a[..., 2, 2]) / 3.0
-    p1 = a[..., 0, 1] ** 2 + a[..., 0, 2] ** 2 + a[..., 1, 2] ** 2
-    d = torch.stack([a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]], dim=-1)
-    p2 = torch.sum((d - q[..., None]) ** 2, dim=-1) + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 1e-30))
-    eye = torch.eye(3, dtype=a.dtype, device=a.device)
-    b = (a - q[..., None, None] * eye) / p[..., None, None]
-    r = torch.clamp(0.5 * _det3(b), -1.0, 1.0)
-    return q, p, torch.arccos(r) / 3.0
-
-
-def sym3_eigvals(a: torch.Tensor) -> torch.Tensor:
-    """Ascending eigenvalues [..., 3] of symmetric 3x3 batches, closed
-    form (no iterative eigh)."""
-    q, p, phi = _trig_eig(a)
-    lam_max = q + 2.0 * p * torch.cos(phi)
-    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
-    lam_mid = 3.0 * q - lam_max - lam_min
-    return torch.stack([lam_min, lam_mid, lam_max], dim=-1)
-
-
 def smallest_eigvec_sym3(a: torch.Tensor) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of [N, 3, 3] symmetric
     matrices: the largest cross product of two columns of A - lambda_min I;
     isotropic or degenerate inputs give +z."""
-    q, p, phi = _trig_eig(a)
-    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
-    m = a - lam_min[:, None, None] * torch.eye(3, dtype=a.dtype,
-                                               device=a.device)
-    c0, c1, c2 = m[:, :, 0], m[:, :, 1], m[:, :, 2]
-    cands = torch.stack([torch.linalg.cross(c0, c1),
-                         torch.linalg.cross(c0, c2),
-                         torch.linalg.cross(c1, c2)], dim=1)   # [N, 3, 3]
-    norms = torch.linalg.norm(cands, dim=2)
-    best = torch.argmax(norms, dim=1)
-    v = torch.gather(cands, 1, best[:, None, None].expand(-1, 1, 3))[:, 0]
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    lam_min = SE.eigvals3(a)[:, 0]
+    v = SE.kernel_direction3(a - lam_min[:, None, None] * eye)
     nrm = torch.linalg.norm(v, dim=1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype,
-                            device=a.device).expand_as(v)
-    return torch.where(nrm > 1e-12, v / torch.clamp_min(nrm, 1e-30), fallback)
+    return torch.where(nrm > 1e-12, v / torch.clamp_min(nrm, 1e-30),
+                       eye[2].expand_as(v))
 
 
 def estimate_covariances(pts: torch.Tensor, valid: torch.Tensor, k: int = 10,

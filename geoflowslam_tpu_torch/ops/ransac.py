@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.math.sym_eig import (drop_smallest_singular3,
+                                                null_vector, svd3)
 from geoflowslam_tpu_torch.ops.indexing import topk_stable
 
 
@@ -62,16 +64,22 @@ def _normalize_2d(pts: torch.Tensor, valid: torch.Tensor):
     return (pts - mean) * s, t
 
 
-def _solve_f_8pt(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+def _solve_f_8pt(p1: torch.Tensor, p2: torch.Tensor,
+                 svd: bool = False) -> torch.Tensor:
     """8-point F from [K, 8, 2] x [K, 8, 2] normalized points, rank 2
-    enforced. Returns [K, 3, 3]."""
+    enforced. Returns [K, 3, 3]. The null vector and the rank-2 projection
+    come from math/sym_eig (float64, no host sync; the frame step's OF
+    stage), or with `svd` from float32 torch.linalg.svd as the reference
+    takes them (it waits for the device on CUDA; the monocular initializer,
+    see mono_init.two_view_reconstruct)."""
     x1, y1 = p1[..., 0], p1[..., 1]
     x2, y2 = p2[..., 0], p2[..., 1]
     a = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      torch.ones_like(x1)], dim=-1)            # [K, 8, 9]
+    if not svd:
+        return drop_smallest_singular3(null_vector(a).reshape(-1, 3, 3))
     vt = torch.linalg.svd(a, full_matrices=True)[2]
-    f = vt[..., 8, :].reshape(-1, 3, 3)
-    u, s, vt2 = torch.linalg.svd(f)
+    u, s, vt2 = torch.linalg.svd(vt[..., 8, :].reshape(-1, 3, 3))
     s = torch.cat([s[:, :2], torch.zeros_like(s[:, 2:])], dim=1)
     return u @ torch.diag_embed(s) @ vt2
 
@@ -94,16 +102,17 @@ def ransac_fundamental(gen: Optional[torch.Generator], uv1: torch.Tensor,
                        uv2: torch.Tensor, valid: torch.Tensor,
                        n_hyp: int = 128, threshold: float = 3.84,
                        sigma: float = 1.0,
-                       sample_sets: Optional[torch.Tensor] = None
-                       ) -> RansacResult:
+                       sample_sets: Optional[torch.Tensor] = None,
+                       svd: bool = False) -> RansacResult:
     """F-RANSAC with TwoViewReconstruction::CheckFundamental's scoring:
     per point th_score - chi2 for chi2 < threshold * sigma^2, both
-    directions. `sample_sets` [n_hyp, 8] replaces the draw from `gen`."""
+    directions. `sample_sets` [n_hyp, 8] replaces the draw from `gen`;
+    `svd` solves the hypotheses with torch.linalg.svd (_solve_f_8pt)."""
     uv1n, t1 = _normalize_2d(uv1, valid)
     uv2n, t2 = _normalize_2d(uv2, valid)
     idx = (sample_sets if sample_sets is not None
            else _sample_minimal_sets(gen, valid, n_hyp, 8))
-    fs_n = _solve_f_8pt(uv1n[idx], uv2n[idx])
+    fs_n = _solve_f_8pt(uv1n[idx], uv2n[idx], svd)
     fs = t2.T @ fs_n @ t1                       # F = T2^T Fn T1
     th = threshold * sigma * sigma
     th_score = 5.991 * sigma * sigma
@@ -113,9 +122,16 @@ def ransac_fundamental(gen: Optional[torch.Generator], uv1: torch.Tensor,
     inls = in1 & in2
     scores = torch.sum(torch.where(in1, th_score - d1, 0.0)
                        + torch.where(in2, th_score - d2, 0.0), dim=1)
-    best = torch.argmax(scores)
-    return RansacResult(fs[best], inls[best], torch.sum(inls[best]),
-                        scores[best])
+    return _best(fs, inls, scores)
+
+
+def _best(models, inls, scores) -> RansacResult:
+    """The hypothesis with the highest score (the first on ties), selected
+    on the device."""
+    best = torch.argmax(scores).reshape(1)
+    inl = inls.index_select(0, best)[0]
+    return RansacResult(models.index_select(0, best)[0], inl,
+                        torch.sum(inl), scores.index_select(0, best)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +214,11 @@ def _solve_pnp_dlt(pts3d: torch.Tensor, rays: torch.Tensor):
     a = torch.cat([torch.cat([ph, zeros, -x[..., None] * ph], dim=-1),
                    torch.cat([zeros, ph, -y[..., None] * ph], dim=-1)],
                   dim=-2)                                       # [H, 12, 12]
-    vt = torch.linalg.svd(a, full_matrices=True)[2]
-    p = vt[..., 11, :].reshape(-1, 3, 4)
+    p = null_vector(a).reshape(-1, 3, 4)
     # sign: points must have positive depth on average
     depths = torch.einsum("hnj,hj->hn", ph, p[:, 2])
     p = p * torch.where(depths.sum(-1) < 0, -1.0, 1.0)[:, None, None]
-    u, sv, vt2 = torch.linalg.svd(p[:, :, :3])
+    u, sv, vt2 = svd3(p[:, :, :3])
     det = torch.linalg.det(u @ vt2)
     dvec = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
     rot = u @ torch.diag_embed(dvec) @ vt2
@@ -226,10 +241,8 @@ def ransac_pnp(gen: Optional[torch.Generator], pts3d: torch.Tensor,
     proj = pc[..., :2] / zs[..., None]
     err2 = torch.sum((proj - uv_norm) ** 2, dim=-1) * focal * focal
     inls = (err2 < threshold_px ** 2) & (z > 0) & valid
-    best = torch.argmax(inls.float().sum(dim=1))
-    model = torch.cat([rots[best], ts[best][:, None]], dim=1)
-    return RansacResult(model, inls[best], inls[best].sum(),
-                        inls[best].float().sum())
+    models = torch.cat([rots, ts[:, :, None]], dim=2)
+    return _best(models, inls, inls.float().sum(dim=1))
 
 
 def refine_pnp_ml(rot0, t0, pts3d, uv_norm, inliers, iters: int = 8):
@@ -239,9 +252,8 @@ def refine_pnp_ml(rot0, t0, pts3d, uv_norm, inliers, iters: int = 8):
     u_i = (R p_i + t) / |R p_i + t|, left-multiplicative se3 updates."""
     v = torch.cat([uv_norm, torch.ones_like(uv_norm[:, :1])], dim=1)
     v = v / torch.linalg.norm(v, dim=1, keepdim=True)
-    ez = torch.tensor([0.0, 0.0, 1.0], device=v.device).expand_as(v)
-    ex = torch.tensor([1.0, 0.0, 0.0], device=v.device).expand_as(v)
-    e = torch.where(torch.abs(v[:, 2:3]) < 0.9, ez, ex)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)
+    e = torch.where(torch.abs(v[:, 2:3]) < 0.9, eye[2], eye[0])
     r_b = torch.linalg.cross(v, e)
     r_b = r_b / torch.clamp_min(torch.linalg.norm(r_b, dim=1, keepdim=True),
                                 1e-9)

@@ -26,6 +26,7 @@ from geoflowslam_tpu_torch.ops.indexing import scatter_set
 from geoflowslam_tpu_torch.solvers import inertial as VI
 from geoflowslam_tpu_torch.solvers.inertial_ba import ImuSegments
 from geoflowslam_tpu_torch.state import map_state as M
+from geoflowslam_tpu_torch.utils.device_const import upload
 
 INIT_W = 10   # KF window of the initialization and the scale refinement
               # (the reference initializes over ~10 recent KFs)
@@ -97,7 +98,7 @@ class InertialTracker:
 
     def bias_on_device(self) -> torch.Tensor:
         if self._bias_dev is None:
-            self._bias_dev = torch.from_numpy(self._bias).to(self.device)
+            self._bias_dev = upload(self._bias, self.device)
         return self._bias_dev
 
     # -- preintegration ------------------------------------------------------
@@ -358,17 +359,25 @@ class InertialTracker:
         return ms, True
 
 
-def refine_frame(imu: InertialTracker, mode: str, ms: M.MapState, frame,
-                 res, pred_body: VI.BodyState, p_frame: pre.Preintegrated,
-                 prior, tcfg, min_inliers: int):
+def body_state_at(rot_cw, t_cw, v, r_cb, t_cb, bias) -> VI.BodyState:
+    """The body state at camera pose Tcw with velocity v and the bias [6]
+    (bg, ba)."""
+    r_wb, p_wb = VI.body_from_cam(rot_cw, t_cw, r_cb, t_cb)
+    return VI.BodyState(r_wb=r_wb, p=p_wb, v=v, bg=bias[:3], ba=bias[3:])
+
+
+def refine_frame(mode: str, ms: M.MapState, frame, res, s1: VI.BodyState,
+                 pred_body: VI.BodyState, p_frame: pre.Preintegrated,
+                 prior, r_cb, t_cb, bias, tcfg, min_inliers: int):
     """The fused frame step's VI refinement (geoflowslam_tpu/pipeline/
-    fused.py:254-308) of a visually tracked frame, on the device: the body
+    fused.py:248-299) of a visually tracked frame, on the device: the body
     state at the visual pose with the IMU-predicted velocity, optimized
-    against the last state (`mode` "kf") or jointly with it under its
+    against the last state s1 (`mode` "kf") or jointly with it under its
     marginalized prior ("prior"), 2 rounds x 6 iterations. The VI state is
     accepted when it keeps max(min_inliers, n_visual / 2) inliers; otherwise
-    the visual pose stands with a finite-difference velocity. Returns (rot,
-    t, obs_mp, n_vi [], accepted [], body state, marginal information)."""
+    the visual pose stands with a finite-difference velocity. `bias` [6]
+    (bg, ba) is the current bias on the device. Returns (rot, t, obs_mp,
+    n_vi [], accepted [], body state, marginal information)."""
     feat = frame.feat
     mp_idx = torch.clamp_min(res.obs_mp, 0).long()
     valid = (res.obs_mp >= 0) & ms.mp_valid[mp_idx] & feat.valid
@@ -377,26 +386,24 @@ def refine_frame(imu: InertialTracker, mode: str, ms: M.MapState, frame,
         is_stereo=valid & (frame.u_right > 0),
         inv_sigma2=1.0 / (tcfg.scale_factor ** feat.level.float()) ** 2,
         valid=valid)
-    s1 = imu.body
-    s2_vis = imu.body_from_cam(res.rot, res.t, v=pred_body.v)
-    args = (obs, imu.r_cb, imu.t_cb, tcfg.fx, tcfg.fy, tcfg.cx, tcfg.cy,
-            tcfg.bf)
+    s2_vis = body_state_at(res.rot, res.t, pred_body.v, r_cb, t_cb, bias)
+    args = (obs, r_cb, t_cb, tcfg.fx, tcfg.fy, tcfg.cx, tcfg.cy, tcfg.bf)
     if mode == "kf":
         s2, inl, n_vi, marg = VI.inertial_pose_optimization(
             s2_vis, s1, p_frame, *args, rounds=2, iters=6, return_info=True)
     else:
         s2, inl, n_vi, marg = VI.inertial_pose_optimization_joint(
             s2_vis, s1, prior, p_frame, *args, rounds=2, iters=6)
-    rot_vi, t_vi = imu.cam_from_body(s2)
+    rot_vi, t_vi = VI.cam_pose_from_body(s2, r_cb, t_cb)
     need = torch.clamp_min((res.n_inliers.float() * 0.5).int(), min_inliers)
     accept = n_vi >= need
     rot = torch.where(accept, rot_vi, res.rot)
     t = torch.where(accept, t_vi, res.t)
     obs_mp = torch.where(accept, torch.where(inl, res.obs_mp, M.NO_MP),
                          res.obs_mp)
-    p_vis = rot.T @ (imu.t_cb - t)
+    p_vis = rot.T @ (t_cb - t)
     v_fd = (p_vis - s1.p) / torch.clamp_min(p_frame.dt, 1e-4)
-    body_vis = imu.body_from_cam(rot, t, v_fd)
+    body_vis = body_state_at(rot, t, v_fd, r_cb, t_cb, bias)
     body = VI.BodyState(*(torch.where(accept, a, b)
                           for a, b in zip(s2, body_vis)))
     return rot, t, obs_mp, n_vi, accept, body, marg

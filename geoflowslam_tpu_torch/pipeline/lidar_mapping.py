@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from geoflowslam_tpu_torch.config import LidarConfig
+from geoflowslam_tpu_torch.math.sym_eig import eigvals3
 from geoflowslam_tpu_torch.ops import pointcloud as PC
 from geoflowslam_tpu_torch.solvers.pose_opt import PlaneObs
 
@@ -74,7 +75,7 @@ def make_plane_obs(lm: LocalMap, cloud_c, cloud_valid, rot_cw, t_cw,
     mean = torch.sum(nb * w[..., None], dim=1) / n_valid
     c = (nb - mean[:, None, :]) * w[..., None]
     cov = torch.einsum("lki,lkj->lij", c, c) / n_valid[..., None]
-    vals = PC.sym3_eigvals(cov)
+    vals = eigvals3(cov)
     normal = PC.smallest_eigvec_sym3(cov)
     # planar: a small plane-fit residual, the next eigenvalue well above it
     planar = ((torch.sqrt(torch.clamp_min(vals[:, 0], 0.0))

@@ -28,8 +28,8 @@ import torch
 
 from geoflowslam_tpu_torch.config import (TH_HIGH, TH_LOW, LoopConfig,
                                           MappingConfig)
+from geoflowslam_tpu_torch.math.sym_eig import eigvals3
 from geoflowslam_tpu_torch.ops import matching, ransac
-from geoflowslam_tpu_torch.ops import pointcloud as pc
 from geoflowslam_tpu_torch.ops.indexing import topk_stable
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
 from geoflowslam_tpu_torch.retrieval import kf_database as DB
@@ -147,7 +147,7 @@ def verify_sim3(ms: M.MapState, cur: int, cand: int,
     nw = torch.clamp_min(torch.sum(w), 1.0)
     mean1 = torch.sum(p1c * w[:, None], dim=0) / nw
     c1 = (p1c - mean1) * w[:, None]
-    lam = pc.sym3_eigvals((c1.T @ c1 / nw)[None])[0]
+    lam = eigvals3((c1.T @ c1 / nw)[None])[0]
     thickness_mm = torch.sqrt(torch.clamp_min(lam[0], 0.0)) * 1e3
     scalars = torch.stack([res.n_inliers.to(torch.int32),
                            inl.sum().to(torch.int32), n_proj,

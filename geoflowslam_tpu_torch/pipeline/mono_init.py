@@ -130,9 +130,14 @@ def two_view_reconstruct(gen: Optional[torch.Generator], uv1, uv2, valid,
     8-hypothesis homography decomposition, otherwise the 4-hypothesis
     essential one). The F sets are drawn first, then the H sets, from
     `gen`. Returns (ok, R21, t21 of unit norm, points in camera 1, good,
-    use_h)."""
+    use_h). The F hypotheses take the reference's float32 SVD: the
+    initializer runs in the staged step, which reads the device anyway. The
+    sync-free solve agrees with it to float32 rounding on the initializer's
+    hypotheses (tests/test_torch_mono.py), but the monocular room at
+    640x480 sits at its ATE gate, and that rounding, amplified through the
+    initialization, moves it across (PERF.md §6)."""
     res_f = ransac.ransac_fundamental(gen, uv1, uv2, valid, n_hyp,
-                                      sigma=sigma)
+                                      sigma=sigma, svd=True)
     res_h = ransac.ransac_homography(gen, uv1, uv2, valid, n_hyp,
                                      sigma=sigma)
     use_h = res_h.score / torch.clamp_min(res_h.score + res_f.score,

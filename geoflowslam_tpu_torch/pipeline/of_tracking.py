@@ -109,10 +109,10 @@ def of_dual_stream(ms: M.MapState, last_frame: FrameData,
         return torch.where(valid, flat, n_cells).long()
 
     occ = torch.zeros((n_cells + 1,), dtype=torch.bool, device=dev)
-    occ[cells_of(cf.uv, cf.valid)] = True
+    occ.index_fill_(0, cells_of(cf.uv, cf.valid), True)
     c3 = cells_of(r3.pts, ok3)
     ok3 = ok3 & ~occ[torch.clamp_max(c3, n_cells - 1)]
-    occ[torch.where(ok3, c3, n_cells)] = True
+    occ.index_fill_(0, torch.where(ok3, c3, n_cells), True)
     c2 = cells_of(r2.pts, ok2)
     ok2 = ok2 & ~occ[torch.clamp_max(c2, n_cells - 1)]
 

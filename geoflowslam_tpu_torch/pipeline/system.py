@@ -9,17 +9,22 @@ Per frame, in the caller's thread, on the system's device:
   track_local_map -> accept or reject (min_inliers_ok, OF confirmations
   discounted) -> NeedNewKeyFrame -> on a keyframe, one
   local_mapping.mapping_step -> trajectory record (t, T_cr, ref KF).
-The OF and ICP stages follow the reference's fused frame step
-(geoflowslam_tpu/pipeline/fused.py): a registration is accepted only when it
+The RGB-D frames the reference runs through its fused step (`_can_fuse`:
+tracking OK, or RECENTLY_LOST with a vocabulary; no record_reproj_err, not
+in localization mode, a previous frame for OF/ICP) go through the port's
+pipeline/fused.frame_step: every stage and decision on the device, the
+frame's images staged through pinned memory, and one host read a frame,
+its packet (inlier counts, VI verdict, twc, T_cr, bias, aux), from which
+the host takes the reference's decisions (_process_pending with
+pkt_max_pending 0: there is no deferred decision ring and no reader thread;
+a local card needs neither). A registration is accepted only when it
 converged, has enough inliers and moved plausibly (< 0.5 m, < ~20 deg); a
 frame whose visual inliers collapse while the registration held is
 ICP-carried: state OK at the registered pose, the motion model learns the
-registered delta, and a keyframe without bindings every 0.5 s.
-The host reads the inlier counts once per stage and the pose once per frame;
-there is no deferred decision ring and no reader thread: a local card needs
-neither. Initialization is StereoInitialization. A KF-stall watchdog counts
-(`kf_stall_warnings`) and warns when no keyframe has landed for 10 s of
-tracking.
+registered delta, and a keyframe without bindings every 0.5 s. KF frames
+read the device in the mapping step. Initialization is
+StereoInitialization. A KF-stall watchdog counts (`kf_stall_warnings`) and
+warns when no keyframe has landed for 10 s of tracking.
 
 A frame whose track fails is handled in one of two modes, as the reference's
 façade handles it:
@@ -27,17 +32,20 @@ façade handles it:
   `record_reproj_err`. The failed frame holds the last pose, keeps the
   motion model and the bindings and goes RECENTLY_LOST at once. Every later
   frame while RECENTLY_LOST, and every frame once an ICP-carried streak
-  reaches 30, runs the recovery step when its track fails
-  (pipeline/reloc.recover_frame: a 40 px re-search from the predicted pose,
-  else relocalization, adopted at >= max(min_inliers_ok, 30) inliers): the
-  matched KF becomes the reference, the motion model identity, the pose is
-  recorded without a reference KF. After `time_recently_lost` the state
-  goes LOST and a new Atlas map starts.
+  reaches 30, runs the frame step's recovery variant, which reads once
+  whether the track failed and then runs the 40 px re-search from the
+  predicted pose and relocalization (pipeline/reloc.recover_frame: the
+  re-search taken when it holds, adopted at >= max(min_inliers_ok, 30)
+  inliers): the matched KF becomes the reference, the motion model
+  identity, the pose is recorded without a reference KF. After
+  `time_recently_lost` the state goes LOST and a new Atlas map starts.
 * staged: with `record_reproj_err` (which also fills `f2f_reproj` and
-  `f2m_reproj`), or without a vocabulary. The failed frame retries wider
-  from the last pose, then (with a vocabulary) TrackReferenceKeyFrame;
-  failing that it drops the motion model, and every RECENTLY_LOST frame,
-  the first included, tries to relocalize (accepted at min_inliers_ok).
+  `f2m_reproj`), or without a vocabulary. A visual frame that fails the
+  fused step without a vocabulary is re-run through the staged step from
+  the state before it, as the reference re-runs it: it retries wider from
+  the last pose, then (with a vocabulary) TrackReferenceKeyFrame; failing
+  that it drops the motion model, and every RECENTLY_LOST frame, the first
+  included, tries to relocalize (accepted at min_inliers_ok).
 
 With an IMU (`cfg.imu`, `track_rgbd_inertial`) the frame follows the
 reference's fused step with its imu_mode: "raw" preintegrates until the IMU
@@ -48,7 +56,8 @@ marginal, and take the VI state when it keeps max(min_inliers_ok, half the
 visual inliers). A lost frame dead-reckons the prediction; KFs come at
 least every 0.5 s, and while lost (InsertKFsWhenLost). Without a vocabulary
 the failed frame does the same (the reference re-runs it through its staged
-step) and the frames after it, which start RECENTLY_LOST, take the staged
+step from its already dead-reckoned outputs; ROADMAP.md Queue 3) and the
+frames after it, which start RECENTLY_LOST, take the staged
 step (below). Until the IMU is
 initialized a KF takes the reference's staged KF step, which attempts the
 initialization; after it, the mapping step runs VI-BA over the temporal
@@ -82,10 +91,10 @@ without a vocabulary every frame that starts RECENTLY_LOST) and before the
 IMU is initialized predicts its position from the last pose moved by the
 mean queued velocity times the frame gap, keeping the predicted rotation,
 and empties the queue; on the other frames the samples pile up, as in the
-reference. The reference's staged re-run of a failed fused frame is folded
-into the port's fallbacks, which search from the last pose; with queued
-odometry they first search from the re-run's odometry prediction (its gap
-is 0: the predicted rotation at the last position).
+reference. The staged re-run of a visual frame that failed the fused step
+without a vocabulary searches again from the last pose when its track
+fails; with queued odometry it first searches from the re-run's odometry
+prediction (its gap is 0: the predicted rotation at the last position).
 
 The stereo entry points build the frame without depth and fill each
 keypoint's depth and right u from a matcher: `track_stereo` from the
@@ -161,6 +170,7 @@ from geoflowslam_tpu_torch.ops import pyramid as pyr_ops
 from geoflowslam_tpu_torch.ops import stereo as ST
 from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.parallel.dist_ba import LandMesh
+from geoflowslam_tpu_torch.pipeline import fused as FU
 from geoflowslam_tpu_torch.pipeline import inertial as IN
 from geoflowslam_tpu_torch.pipeline import lidar_mapping as LD
 from geoflowslam_tpu_torch.pipeline import local_mapping as LM
@@ -176,6 +186,7 @@ from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state import serialize as S
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
+from geoflowslam_tpu_torch.utils.device_const import upload
 from geoflowslam_tpu_torch.utils.timers import StageTimers
 from geoflowslam_tpu_torch.viewer.html_export import export_html
 
@@ -257,7 +268,11 @@ class SlamSystem:
         self._of_last = torch.zeros(2, dtype=torch.long, device=dev)
         self._of_total = torch.zeros(2, dtype=torch.long, device=dev)
         self._icp_accepted = torch.zeros((), dtype=torch.long, device=dev)
+        # the frame step's packet: its pinned host buffer and event
+        self._pkt_host: Optional[torch.Tensor] = None
+        self._pkt_event = None
         self.n_icp_carried = 0
+        self.n_staged_reruns = 0   # failed fused frames re-run staged
         self._carried_streak = 0   # consecutive ICP-carried frames
         # recovery and loop closing: the BoW database is the loop closer's,
         # or a standalone one when loop closing is off (the reference's
@@ -335,7 +350,8 @@ class SlamSystem:
         already-packed 1-D uint8 buffer, depth then unused). Returns Twc 4x4
         (float64). With an IMU configured the frame takes the inertial
         path without IMU samples."""
-        return self._track(self._rgbd_frame(gray, depth), timestamp, None)
+        return self._track(None, timestamp, None,
+                           images=self._rgbd_images(gray, depth))
 
     def track_rgbd_inertial(self, gray, depth, acc, gyro, dts,
                             timestamp: float) -> np.ndarray:
@@ -343,8 +359,8 @@ class SlamSystem:
         acc, gyro [S, 3] in the body frame, dts [S] (0 = padding), numpy or
         tensors (S <= ImuConfig.max_samples_per_frame). Returns Twc 4x4."""
         self._need_imu("track_rgbd_inertial")
-        return self._track(self._rgbd_frame(gray, depth), timestamp,
-                           (acc, gyro, dts))
+        return self._track(None, timestamp, (acc, gyro, dts),
+                           images=self._rgbd_images(gray, depth))
 
     def track_stereo(self, gray_l, gray_r, timestamp: float) -> np.ndarray:
         """Track one rectified stereo pair (gray [H, W] 0..255 each; the
@@ -402,12 +418,16 @@ class SlamSystem:
             raise ValueError(f"{entry} needs SystemConfig.imu")
 
     def _track(self, make_frame, timestamp: float, imu_in,
-               staged: bool = False):
-        """One frame: the time guards, then initialization, the fused
-        inertial step or the (staged) frame step. `make_frame()` builds the
-        frame; `staged` sends every frame through the staged step (the
-        stereo and monocular entry points; every entry point in
-        localization mode)."""
+               staged: bool = False, images=None):
+        """One frame: the time guards, then initialization, the fused frame
+        step or the staged frame step. `make_frame()` builds the frame, or
+        `images` (the RGB-D entry points' device images) are built into it;
+        `staged` sends every frame through the staged step (the stereo and
+        monocular entry points; every entry point in localization mode).
+        The RGB-D frames the reference runs fused (`_can_fuse`) go through
+        pipeline/fused.frame_step."""
+        if images is not None:
+            make_frame = lambda: self._build(*images)    # noqa: E731
         self._t_rel(timestamp)
         started = (self.n_frames > 0
                    and self.state != TrackingState.NOT_INITIALIZED)
@@ -416,6 +436,10 @@ class SlamSystem:
                 self.cfg.record_reproj_err
                 or (self.vocab is None
                     and self.state == TrackingState.RECENTLY_LOST)))
+        fused = (started and not staged and images is not None
+                 and self._can_fuse())
+        if started and self.imu is not None and not fused:
+            staged = True     # the reference's staged step, as it runs it
         if (started and self.imu is not None and not staged
                 and self._imu_guard(timestamp)):
             return self.current_pose_wc()
@@ -447,14 +471,13 @@ class SlamSystem:
                 self.reset_active_map()
         twc = None
         with self.timers.time("Track_total"):
-            frame = make_frame()
+            frame = None if fused else make_frame()
             if self.state == TrackingState.NOT_INITIALIZED:
                 if imu_in is not None:
                     self.imu.preintegrate_frame(*imu_in, timestamp)
                 self._initialize(frame, timestamp)
-            elif self.imu is not None and not staged:
-                frame, twc = self._track_frame_inertial(frame, imu_in,
-                                                        timestamp)
+            elif fused:
+                frame, twc = self._track_fused(images, imu_in, timestamp)
             else:
                 frame, twc = self._track_frame(frame, timestamp, p_frame,
                                                staged)
@@ -467,18 +490,18 @@ class SlamSystem:
         self.last_levels = frame.feat.level
         return twc if twc is not None else self._record_pose(timestamp)
 
-    def _rgbd_frame(self, gray, depth):
-        """The RGB-D frame's builder, its images already on the device in
-        the configured feed: with feed_codec "m12" a (gray, depth) pair is
-        packed on the host (io/feed_codec.pack_m12) and an already-packed
-        1-D buffer passes through, depth then unused."""
+    def _rgbd_images(self, gray, depth):
+        """The RGB-D frame's images on the device in the configured feed,
+        host arrays copied through pinned memory without a wait: with
+        feed_codec "m12" a (gray, depth) pair is packed on the host
+        (io/feed_codec.pack_m12) and an already-packed 1-D buffer passes
+        through, depth then None."""
         if self.cfg.frame.feed_codec == "m12" and np.ndim(gray) != 1:
             gray = FC.pack_m12(_host(gray), _host(depth),
                                self.cfg.frame.depth_map_factor)
-        gray = torch.as_tensor(gray).to(self.device)
-        depth = (None if gray.dim() == 1
-                 else torch.as_tensor(depth).to(self.device))
-        return lambda: self._build(gray, depth)
+        gray = upload(gray, self.device)
+        depth = None if gray.dim() == 1 else upload(depth, self.device)
+        return gray, depth
 
     def _build(self, gray, depth) -> FrameData:
         c = self.cfg
@@ -929,13 +952,19 @@ class SlamSystem:
     def _track_frame(self, frame: FrameData, timestamp: float,
                      p_frame: Optional[pre.Preintegrated] = None,
                      staged: bool = False):
-        """Track one frame after initialization; returns the frame with its
-        OF slots filled (the next frame's optical-flow source) and the Twc it
-        recorded mid-step, or None when the pose is still to record.
+        """Track one frame after initialization outside the fused step: the
+        frames the reference does not fuse, and the staged re-run of a
+        failed fused frame without a vocabulary. Returns the frame with its
+        OF slots filled (the next frame's optical-flow source) and the Twc
+        it recorded mid-step, or None when the pose is still to record.
         `staged`: the frame takes the reference's staged step from the start
         (the stereo frames, and the IMU frames the reference runs staged),
         with its IMU branches; `p_frame` is then the frame's preintegration
-        (host), None without samples."""
+        (host), None without samples. Otherwise (the visual frames that
+        start RECENTLY_LOST without a vocabulary, or without a previous
+        frame for OF/ICP, and the re-runs) a failed track retries wider,
+        from the odometry first when it is queued, then against the
+        reference KF with a vocabulary: the reference's staged re-run."""
         cfg, imu = self.cfg, self.imu
         min_ok = cfg.min_inliers_ok
         last_rot, last_t = self.cur_rot, self.cur_t
@@ -956,7 +985,6 @@ class SlamSystem:
                                      last_t)
         else:
             pr, pt = last_rot, last_t
-        fused = self._fused_mode() and not staged
         staged_run = staged or cfg.record_reproj_err
         if (cfg.use_odom and self._odom_queue
                 and not (imu is not None and imu.initialized)
@@ -975,8 +1003,8 @@ class SlamSystem:
         n1 = int(res.n_inliers)
         # the reference's staged step: from the start, or as the re-run of a
         # failed frame (the fallbacks below)
-        staged_step = staged_run or (n1 < min_ok and not fused)
-        if (n1 < min_ok and not fused and cfg.use_odom and self._odom_queue
+        staged_step = staged_run or n1 < min_ok
+        if (n1 < min_ok and cfg.use_odom and self._odom_queue
                 and not (icp_ok is not None and bool(icp_ok))):
             # the reference re-runs a failed frame that ICP did not carry
             # through its staged step, which predicts from the odometry
@@ -987,14 +1015,14 @@ class SlamSystem:
                 *self._odom_predict(pr, pt, self.last_time), self.tcfg,
                 self.last_levels, extra_obs=extra_obs)
             n1 = int(res.n_inliers)
-        if n1 < min_ok and not fused:
+        if n1 < min_ok:
             # search wider from the unpredicted pose
             wide = dataclasses.replace(self.tcfg, search_radius_mm=40.0)
             res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp,
                                             last_rot, last_t, wide,
                                             self.last_levels)
             n1 = int(res.n_inliers)
-        if n1 < min_ok and not fused and self.vocab is not None:
+        if n1 < min_ok and self.vocab is not None:
             # BoW-gated matching against the reference KF
             wf = Vv.descend(self.vocab, frame.feat.desc, frame.feat.valid)
             wk = Vv.descend(self.vocab, self.ms.kf_desc[self.ref_kf],
@@ -1004,8 +1032,7 @@ class SlamSystem:
                                              self.tcfg)
             n1 = int(res.n_inliers)
         ms2, res2 = self.ms, res
-        if n1 >= min_ok or fused:
-            # the fused step runs the local-map stage on every frame
+        if n1 >= min_ok:
             if self.local_masks is None:
                 self.local_masks = M.local_window(
                     self.ms, self.ref_kf, self.tcfg.local_window,
@@ -1031,9 +1058,10 @@ class SlamSystem:
             # n2 / 2) inliers; otherwise the visual pose stands and the VI
             # prior chain restarts at the next KF-anchored state
             rot_v, t_v, obs_v, n_vi, accept, body, marg = IN.refine_frame(
-                imu, mode, ms2, frame,
+                mode, ms2, frame,
                 res2._replace(n_inliers=torch.tensor(n2, device=self.device)),
-                pred_body, p_dev, self._vi_prior, self.tcfg, min_ok)
+                imu.body, pred_body, p_dev, self._vi_prior, imu.r_cb,
+                imu.t_cb, imu.bias_on_device(), self.tcfg, min_ok)
             bias = torch.cat([body.bg, body.ba])
             pkt = torch.cat([n_vi.reshape(1).float(),
                              accept.reshape(1).float(), bias]).cpu().numpy()
@@ -1072,13 +1100,6 @@ class SlamSystem:
                     twc = self._record_pose(timestamp)
                 self._insert_keyframe(frame, timestamp, res2, n2)
             return frame, twc
-        if fused and (self.state == TrackingState.RECENTLY_LOST
-                      or self._carried_streak >= 30):
-            rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
-                                  self.ref_kf, self.last_levels, self.tcfg,
-                                  min_ok, self._reloc_attempt)
-            if rec is not None:
-                return frame, self._adopt_recovery(rec, timestamp)
         if icp_ok is not None and bool(icp_ok):
             # ICP-carried: the registered pose is the track; the map and
             # the visual bindings stay as they were
@@ -1100,12 +1121,7 @@ class SlamSystem:
             self._kf_watchdog(timestamp)
             return frame, None
         self.n_lost += 1
-        if fused:
-            # hold the last pose, motion model and bindings; recovery runs
-            # from the next frame on
-            self._lost_stamps.add(round(timestamp, 6))
-        else:
-            self.has_vel = False
+        self.has_vel = False
         if self.state == TrackingState.OK:
             self.state = TrackingState.RECENTLY_LOST
             self.lost_since = timestamp
@@ -1119,7 +1135,7 @@ class SlamSystem:
                 imu.body = imu.body_from_cam(pr, pt)
             self._insert_keyframe(frame, timestamp, T.TrackResult(
                 pr, pt, res2.obs_mp, n2), n2)
-        if (self.state == TrackingState.RECENTLY_LOST and not fused
+        if (self.state == TrackingState.RECENTLY_LOST
                 and self._relocalize(frame)):
             self.state = TrackingState.OK
             self.lost_since = None
@@ -1150,188 +1166,206 @@ class SlamSystem:
                 v = (b_new.p - imu.body.p) / dt
         imu.body = imu.body_from_cam(self.cur_rot, self.cur_t, v=v)
 
-    def _track_frame_inertial(self, frame: FrameData, imu_in,
-                              timestamp: float):
-        """Track one frame after initialization on the reference's fused
-        path with an IMU (geoflowslam_tpu/pipeline/fused.py frame_step and
-        its host decisions). `imu_mode`: "off" without samples, "raw" until
-        the IMU is initialized (preintegrate only), then "kf" (VI against
-        the last KF-anchored state) or "prior" (joint with the last frame's
-        state under its marginal). Returns the frame with its OF slots
-        filled and the Twc recorded mid-step, or None when the pose is still
-        to record."""
+    def _track_fused(self, images, imu_in, timestamp: float):
+        """One frame through pipeline/fused.frame_step (the reference's
+        _track_fused), then the host decisions from its packet, read once,
+        as the reference's _process_pending takes them with pkt_max_pending
+        0: the inlier log, the trajectory, VI acceptance and the prior
+        chain, the bias, the KF policy, the ICP-carried streak, a recovered
+        pose, RECENTLY_LOST/LOST and InsertKFsWhenLost. `imu_mode`: "off"
+        without samples, "raw" until the IMU is initialized, then "kf" (VI
+        against the last KF-anchored state) or "prior" (joint with the last
+        frame's state under its marginal). A failed frame without a
+        vocabulary and without an IMU is re-run through the staged step
+        from the state before it; with the IMU it stays dead-reckoned (see
+        the module docstring). Returns the frame with its OF slots
+        filled and the recorded Twc."""
         cfg, imu = self.cfg, self.imu
-        min_ok = cfg.min_inliers_ok
-        if imu_in is None:
+        if imu is None or imu_in is None:
             mode = "off"
         elif not imu.initialized or imu.body is None:
             mode = "raw"
         else:
             mode = "kf" if self._vi_prior is None else "prior"
-        self.imu_modes[mode] = self.imu_modes.get(mode, 0) + 1
-        last_rot, last_t = self.cur_rot, self.cur_t
-        p_frame = pred_body = None
+        if imu is not None:
+            self.imu_modes[mode] = self.imu_modes.get(mode, 0) + 1
+        kf_modes = mode in ("kf", "prior")
+        p_frame = None
         if mode != "off":
             p_frame = pre.to_device(
                 imu.preintegrate_frame(*imu_in, timestamp), self.device)
-        if mode in ("kf", "prior"):
-            pred_body = imu.predict(p_frame)
-            pr, pt = imu.cam_from_body(pred_body)
-        elif self.has_vel:
-            pr, pt = lie.se3_compose(self.vel[0], self.vel[1], last_rot,
-                                     last_t)
-        else:
-            pr, pt = last_rot, last_t
-        icp_ok = None
-        if cfg.use_icp and self.last_frame is not None:
-            # the registration starts from the IMU or motion-model prediction
-            pr, pt, icp_ok = self._icp_predict(frame, pr, pt)
-        frame, extra_obs, of_innov = self._of_stage(frame, pr, pt)
-        res = T.track_with_motion_model(self.ms, frame, self.last_obs_mp, pr,
-                                        pt, self.tcfg, self.last_levels,
-                                        extra_obs=extra_obs)
-        if self.local_masks is None:
-            self.local_masks = M.local_window(
-                self.ms, self.ref_kf, self.tcfg.local_window,
-                self.tcfg.lm_max_candidates)
-        ms2, res2 = T.track_local_map(self.ms, frame, res.obs_mp, res.rot,
-                                      res.t, self.tcfg, self.local_masks)
-        if of_innov is not None:
-            # the OF health discount, also the VI acceptance's reference
-            res2 = res2._replace(n_inliers=res2.n_inliers - torch.sum(
-                (of_innov < 1.0) & (res2.obs_mp >= 0)))
-        if cfg.use_lidar:
-            res2 = self._lidar_refine(frame, ms2, res2, timestamp)
-        rot_f, t_f, obs_f = res2.rot, res2.t, res2.obs_mp
-        scal = [res.n_inliers, res2.n_inliers]
-        if mode in ("kf", "prior"):
-            rot_f, t_f, obs_f, n_vi, accept, body, marg = IN.refine_frame(
-                imu, mode, ms2, frame, res2, pred_body, p_frame,
-                self._vi_prior, self.tcfg, min_ok)
-            bias = torch.cat([body.bg, body.ba])
-            scal += [n_vi, accept, bias]
-        if icp_ok is not None:
-            scal.append(icp_ok)
-        # the frame's one host read: inlier counts, VI verdict, the bias and
-        # the registration's verdict
-        pkt = torch.cat([torch.as_tensor(x, device=self.device)
-                         .reshape(-1).float() for x in scal]).cpu().numpy()
-        n1, n2 = int(pkt[0]), int(pkt[1])
-        icp_held = icp_ok is not None and bool(pkt[-1])
-        vi_ok = mode in ("kf", "prior") and bool(pkt[3])
-        n_final = int(pkt[2]) if vi_ok else n2
+        recovery = self._fused_mode() and (
+            self.state == TrackingState.RECENTLY_LOST
+            or self._carried_streak >= 30)
+        args, kw = self._fused_inputs(images, mode, p_frame, recovery)
+        out = FU.frame_step(*args, **kw)
+        pkt = self._read_packet(out.host_pkt)
+        n1, n2, n_vi = int(pkt[0]), int(pkt[1]), int(pkt[2])
+        vi_ok = kf_modes and pkt[3] > 0.5
+        aux = float(pkt[FU.PKT_AUX])
+        n_final = n_vi if vi_ok else n2
+        ok = n_final >= cfg.min_inliers_ok
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
-        if vi_ok:
-            self.n_vi_accepted += 1
-
-        if n_final >= min_ok:
+        if not ok and aux < 0.5 and not self._fused_mode() and imu is None:
+            # the reference re-runs the failed frame through its staged
+            # step, from the state before it
+            self.n_staged_reruns += 1
+            return self._track_frame(out.frame, timestamp)
+        self._count_fused(out, timestamp)
+        ref, gen = self.ref_kf, self._kf_gen.get(self.ref_kf)
+        # the step's outputs are the tracking state (a failed frame's hold
+        # or dead reckoning, a recovered pose, its motion model)
+        self.ms = out.ms
+        self.cur_rot, self.cur_t = out.rot, out.t
+        self.last_obs_mp = out.obs_mp
+        self.vel = (out.vel_rot, out.vel_t)
+        self.has_vel = True
+        if kf_modes:
+            imu.body = out.body
+            imu.set_bias(pkt[28:34], out.bias_out)
+            self._vi_prior = out.marg
+        twc = np.eye(4)
+        twc[:3, :4] = pkt[4:16].reshape(3, 4)
+        trel = pkt[16:28].reshape(3, 4).astype(np.float64)
+        if ok:
             self.state = TrackingState.OK
             self.lost_since = None
             self._carried_streak = 0
-            self.ms = ms2
-            self._set_pose(rot_f, t_f, last_rot, last_t)
-            self.last_obs_mp = obs_f
-            if mode in ("kf", "prior"):
-                imu.body = body
-                imu.set_bias(pkt[4:10], bias)
-                self._vi_prior = marg if vi_ok else None
+            if kf_modes and not vi_ok:
+                self._vi_prior = None
+            self.n_vi_accepted += int(vi_ok)
             self.frames_since_kf += 1
             self._kf_watchdog(timestamp)
-            if not self._need_new_keyframe(n_final, timestamp):
-                return frame, None
             # recorded against the reference KF before the KF's mapping
-            twc = self._record_pose(timestamp)
-            self._insert_keyframe(frame, timestamp,
-                                  T.TrackResult(rot_f, t_f, obs_f, n2), n2)
-            return frame, twc
-        if self.vocab is not None and (
-                self.state == TrackingState.RECENTLY_LOST
-                or self._carried_streak >= 30):
-            rec = R.recover_frame(self.ms, frame, self.last_obs_mp, pr, pt,
-                                  self.ref_kf, self.last_levels, self.tcfg,
-                                  min_ok, self._reloc_attempt)
-            if rec is not None:
-                if mode in ("kf", "prior"):
-                    # the body state at the recovered pose keeps the
-                    # dead-reckoned velocity
-                    imu.body = imu.body_from_cam(rec.rot, rec.t,
-                                                 v=pred_body.v)
-                self._vi_prior = None
-                return frame, self._adopt_recovery(rec, timestamp)
-        if icp_held:
+            self._traj.append((timestamp, twc, ref, gen, trel))
+            if self._need_new_keyframe(n_final, timestamp):
+                self._insert_keyframe(out.frame, timestamp, T.TrackResult(
+                    out.rot, out.t, out.obs_mp, n2), n2)
+            return out.frame, twc
+        if aux >= 2.0:
+            # recovered in the step (the re-search or the relocalization):
+            # the matched KF becomes the reference, the motion model is
+            # identity, the pose is recorded without a reference KF
+            cand = int(round(aux)) - 2
+            self.state = TrackingState.OK
+            self.lost_since = None
+            self._carried_streak = 0
+            self.frames_since_kf += 1
+            self._vi_prior = None
+            if cand in self._kf_gen and bool(self.ms.kf_valid[cand]):
+                self.ref_kf = cand
+            self.local_masks = None
+            self.n_recovered += 1
+            self.n_reloc += int(pkt[FU.PKT_RELOC] > 0.5)
+            self._traj.append((timestamp, twc))
+            return out.frame, twc
+        if aux > 0.5:
             # ICP-carried: the registered pose is the track and the motion
-            # model learns its delta; the body state stays dead-reckoned and
-            # the VI marginal is kept (the reference's fused step); the map
-            # and the visual bindings stay as they were
+            # model learns its delta; the map and the visual bindings stay,
+            # the body state stays dead-reckoned and the VI marginal is kept
+            # (the reference's fused step); a KF without bindings every 0.5 s
             self.state = TrackingState.OK
             self.lost_since = None
             self._carried_streak += 1
             self.n_icp_carried += 1
             self.frames_since_kf += 1
-            self._set_pose(pr, pt, last_rot, last_t)
-            if mode in ("kf", "prior"):
-                imu.body = pred_body
-                self._vi_prior = marg
-            twc = self._record_pose(timestamp)
+            self._traj.append((timestamp, twc, ref, gen, trel))
             if timestamp - self._last_kf_time >= 0.5:
-                no_obs = torch.full_like(self.last_obs_mp, M.NO_MP)
-                self._insert_keyframe(frame, timestamp, T.TrackResult(
-                    pr, pt, no_obs, 0), 0, fused_kf=True)
+                no_obs = torch.full_like(out.obs_mp, M.NO_MP)
+                self._insert_keyframe(out.frame, timestamp, T.TrackResult(
+                    out.rot, out.t, no_obs, 0), 0, fused_kf=True)
             self._kf_watchdog(timestamp)
-            return frame, twc
+            return out.frame, twc
         # a lost frame: with the IMU it dead-reckons the prediction, without
         # it holds the last pose; the motion model and the bindings stay
         self.n_lost += 1
-        self._lost_stamps.add(round(timestamp, 6))
-        self.has_vel = True
-        if mode in ("kf", "prior"):
-            self.cur_rot, self.cur_t = pr, pt
-            imu.body = pred_body
-            self._vi_prior = None
+        self._vi_prior = None
         if self.state == TrackingState.OK:
             self.state = TrackingState.RECENTLY_LOST
             self.lost_since = timestamp
-        twc = self._record_pose(timestamp, with_ref=False)
-        if (cfg.insert_kfs_when_lost and imu.initialized
+        self._lost_stamps.add(round(timestamp, 6))
+        self._traj.append((timestamp, twc))
+        if (cfg.insert_kfs_when_lost and imu is not None and imu.initialized
                 and timestamp - self._last_kf_time >= 0.5):
             # InsertKFsWhenLost: KFs from the dead-reckoned pose bridge the
             # gap with depth-created points; no visual bindings carry over
-            no_obs = torch.full_like(self.last_obs_mp, M.NO_MP)
-            self._insert_keyframe(frame, timestamp, T.TrackResult(
-                self.cur_rot, self.cur_t, no_obs, 0), 0, fused_kf=True)
+            no_obs = torch.full_like(out.obs_mp, M.NO_MP)
+            self._insert_keyframe(out.frame, timestamp, T.TrackResult(
+                out.rot, out.t, no_obs, 0), 0, fused_kf=True)
         if (self.lost_since is not None
                 and timestamp - self.lost_since > cfg.time_recently_lost):
             self.state = TrackingState.LOST
             self._reset_or_new_map()
-        return frame, twc
+        return out.frame, twc
+
+    def _fused_inputs(self, images, mode: str,
+                      p_frame: Optional[pre.Preintegrated], recovery: bool):
+        """frame_step's (args, kwargs) for the next frame from the tracking
+        state: `images` on the device, the `imu_mode`, the frame gap's
+        preintegration on the device, and whether it runs the recovery
+        variant."""
+        cfg, imu = self.cfg, self.imu
+        kf_modes = mode in ("kf", "prior")
+        if self.local_masks is None:
+            self.local_masks = M.local_window(
+                self.ms, self.ref_kf, self.tcfg.local_window,
+                self.tcfg.lm_max_candidates)
+        chain = cfg.use_of or cfg.use_icp
+        args = (*images, self.ms, self.last_obs_mp, self.last_levels,
+                self.vel[0], self.vel[1], self.has_vel, self.cur_rot,
+                self.cur_t, self.ref_kf, self.local_masks, p_frame,
+                imu.body if kf_modes else None,
+                imu.bias_on_device() if kf_modes else None,
+                self._vi_prior if mode == "prior" else None,
+                imu.r_cb if kf_modes else None,
+                imu.t_cb if kf_modes else None,
+                self.tcfg, cfg.frame, mode, cfg.min_inliers_ok)
+        kw = dict(device=self.device,
+                  last_frame=self.last_frame if chain else None,
+                  use_of=cfg.use_of, use_icp=cfg.use_icp,
+                  icp_method=cfg.icp_method,
+                  icp_min_inliers=cfg.icp_min_inliers,
+                  n_of_slots=cfg.frame.n_of_slots, gen=self._gen,
+                  use_lidar=cfg.use_lidar, lidar_map=self.lidar_map,
+                  lidar_cfg=self._lidar_cfg, with_recovery=recovery,
+                  relocalize=self._reloc_attempt if recovery else None)
+        return args, kw
 
     def _fused_mode(self) -> bool:
         """The reference's default recovery (see the module docstring)."""
         return self.vocab is not None and not self.cfg.record_reproj_err
 
-    def _adopt_recovery(self, rec: R.Recovery,
-                        timestamp: float) -> np.ndarray:
-        """A frame recovered by recover_frame: its pose and bindings, the
-        motion model reset, the matched KF as reference (when live), the
-        local window rebuilt on the next frame; returns the pose, recorded
-        without a reference KF."""
-        self.cur_rot, self.cur_t = rec.rot, rec.t
-        self.last_obs_mp = rec.obs_mp
-        self.vel = (torch.eye(3, device=self.device),
-                    torch.zeros(3, device=self.device))
-        self.has_vel = True
-        if rec.kf in self._kf_gen and bool(self.ms.kf_valid[rec.kf]):
-            self.ref_kf = rec.kf
-        self.local_masks = None
-        self._carried_streak = 0
-        self.frames_since_kf += 1
-        self.state = TrackingState.OK
-        self.lost_since = None
-        self.n_recovered += 1
-        self.n_reloc += rec.relocalized
-        return self._record_pose(timestamp, with_ref=False)
+    def _read_packet(self, pkt: torch.Tensor) -> np.ndarray:
+        """The frame step's packet on the host: one copy into a pinned
+        buffer and one event sync on a CUDA device. The copy and the event
+        go on the packet's device's current stream, which need not be the
+        current device's."""
+        if not pkt.is_cuda:
+            return pkt.numpy().copy()
+        if self._pkt_host is None:
+            self._pkt_host = torch.empty(pkt.shape, dtype=pkt.dtype,
+                                         pin_memory=True)
+            self._pkt_event = torch.cuda.Event()
+        with torch.cuda.device(pkt.device):
+            self._pkt_host.copy_(pkt, non_blocking=True)
+            self._pkt_event.record(torch.cuda.current_stream(pkt.device))
+        self._pkt_event.synchronize()
+        return self._pkt_host.numpy().copy()
+
+    def _count_fused(self, out: FU.FusedOut, timestamp: float):
+        """The device-side counters of a fused frame: OF points appended,
+        ICP predictions accepted, valid plane factors."""
+        if out.of_counts is not None:
+            self._of_last = out.of_counts
+            self._of_total = self._of_total + out.of_counts
+        if out.icp_ok is not None:
+            self._icp_accepted = self._icp_accepted + out.icp_ok
+        if out.n_planes is not None:
+            self._plane_log.append((round(timestamp, 4), out.n_planes))
+            if len(self._plane_log) > 4096:
+                del self._plane_log[:2048]
 
     def _reloc_attempt(self, frame: FrameData):
         """One reloc_core call on the active map (one K4 launch on the

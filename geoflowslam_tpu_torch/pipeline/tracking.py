@@ -200,9 +200,10 @@ def track_local_map(ms: M.MapState, frame: FrameData, obs_mp: torch.Tensor,
     cand = cand & ((vcos > 0.5) | ~has_normal)
 
     # predicted octave from distance (MapPoint::PredictScale)
-    log_sf = torch.log(torch.tensor(cfg.scale_factor, dtype=torch.float32))
+    log_sf = torch.log(torch.full((), cfg.scale_factor, dtype=torch.float32,
+                                  device=dev))
     ratio_d = torch.clamp_min(max_d_c, 1e-6) / torch.clamp_min(dist, 1e-6)
-    level_pred = torch.clamp(torch.ceil(torch.log(ratio_d) / log_sf.to(dev)),
+    level_pred = torch.clamp(torch.ceil(torch.log(ratio_d) / log_sf),
                              0, cfg.n_levels - 1).to(torch.int32)
     r_view = torch.where(vcos >= 0.998, 0.5, 0.8)
     radius = (cfg.search_radius_lm * r_view

@@ -27,6 +27,7 @@ import torch
 
 from geoflowslam_tpu_torch.imu import preintegration as pre
 from geoflowslam_tpu_torch.math import lie
+from geoflowslam_tpu_torch.math.sym_eig import eigh_jacobi
 from geoflowslam_tpu_torch.solvers.pose_opt import (CHI2_MONO, CHI2_STEREO,
                                                     HUBER_MONO, HUBER_STEREO,
                                                     PoseObs, _chi2, huber_w,
@@ -235,10 +236,13 @@ def inertial_pose_optimization(s2: BodyState, s1: BodyState,
 
 def sanitize_info(info: torch.Tensor) -> torch.Tensor:
     """Symmetrize and clamp a marginal information matrix to PSD (float32
-    Schur complements can go slightly indefinite); zeros if not finite."""
+    Schur complements can go slightly indefinite); zeros if not finite.
+    The eigendecomposition is a fixed-sweep Jacobi in float64
+    (math/sym_eig.eigh_jacobi): `torch.linalg.eigh` waits for the device on
+    CUDA."""
     info = 0.5 * (info + info.T)
-    ev, vec = torch.linalg.eigh(info)
-    info = (vec * torch.clamp_min(ev, 0.0)[None, :]) @ vec.T
+    ev, vec = eigh_jacobi(info.to(torch.float64))
+    info = ((vec * torch.clamp_min(ev, 0.0)[None, :]) @ vec.T).to(info.dtype)
     return torch.where(torch.all(torch.isfinite(info)), info, 0.0)
 
 

@@ -118,8 +118,8 @@ def save_atlas(path: str, ms: M.MapState, vocab=None,
     np.savez_compressed(path, **arrays)
 
 
-def load_atlas(path: str, vocab=None, check_vocab: bool = True,
-               device="cpu") -> Tuple[M.MapState, dict]:
+def load_atlas(path: str, vocab=None, check_vocab: bool = True, *,
+               device) -> Tuple[M.MapState, dict]:
     """Load a MapState onto `device`; verifies the vocabulary checksum like
     LoadAtlas."""
     data, meta = _read(path, "atlas")

@@ -37,7 +37,8 @@ from test_dataset_drivers import _ate, _load_tum_traj  # noqa: E402
 
 def test_tum_rgbd_inertial_driver(tmp_path):
     seq = str(tmp_path / "tum_seq")
-    _, settings, assoc = FX.export_tum_rgbd(seq, n_frames=35, fps=10.0)
+    _, settings, assoc = FX.export_tum_rgbd(seq, n_frames=35, fps=10.0,
+                                         device="cpu")
     out, atlas = str(tmp_path / "out"), str(tmp_path / "atlas")
     res = run_rgbd_tum.main([settings, seq, assoc, "--imu", "--out", out,
                              "--atlas", atlas, "--device", "cpu"])
@@ -67,7 +68,7 @@ def test_tum_rgbd_inertial_driver(tmp_path):
 
 def test_euroc_mono_driver(tmp_path):
     seq = str(tmp_path / "euroc_seq")
-    FX.export_euroc(seq, n_frames=45, fps=10.0)
+    FX.export_euroc(seq, n_frames=45, fps=10.0, device="cpu")
     out = str(tmp_path / "out")
     run_euroc.main([seq, "--mode", "mono", "--settings",
                     os.path.join(seq, "settings.yaml"), "--out", out,
@@ -101,12 +102,13 @@ def test_drivers_default_to_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     seq = str(tmp_path / "tum_seq")
     _, settings, assoc = FX.export_tum_rgbd(seq, n_frames=2, width=64,
-                                            height=48)
+                                            height=48, device="cpu")
     assert run_rgbd_tum.parse_args([settings, seq, assoc]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         run_rgbd_tum.main([settings, seq, assoc, "--out",
                            str(tmp_path / "o")])
-    FX.export_euroc(str(tmp_path / "euroc"), n_frames=2, width=64, height=48)
+    FX.export_euroc(str(tmp_path / "euroc"), n_frames=2, width=64, height=48,
+                    device="cpu")
     assert run_euroc.parse_args([str(tmp_path / "euroc")]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         run_euroc.main([str(tmp_path / "euroc"), "--mode", "mono",

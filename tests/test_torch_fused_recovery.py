@@ -238,10 +238,12 @@ def test_recover_frame_matches_the_fused_step(scene, reference, turn,
                            snap["ref_kf"], c(snap["levels"]), ttrk, min_ok,
                            relocalize)
     assert n_j >= max(min_ok, 30), n_j      # the reference adopts it
-    assert rec is not None
-    assert rec.relocalized == (not use_w) == bool(calls)
-    assert rec.n_inliers == n_j, (rec.n_inliers, n_j)
-    assert rec.kf == kf_j
+    assert bool(rec.adopted)
+    # both stages run, as the reference's, and the choice is the same
+    assert calls == [1]
+    assert bool(rec.relocalized) == (not use_w)
+    assert int(rec.n_inliers) == n_j, (int(rec.n_inliers), n_j)
+    assert int(rec.kf) == kf_j
     assert np.linalg.norm(rec.t.numpy() - np.asarray(t_j)) < 1e-3
     assert _rot_deg(rec.rot.numpy(), rot_j) < 0.05
 

@@ -21,6 +21,7 @@ from geoflowslam_tpu.io.synthetic import Camera, SyntheticSequence, SyntheticWor
 from geoflowslam_tpu.ops import gicp as JG
 from geoflowslam_tpu.ops import pointcloud as JP
 
+from geoflowslam_tpu_torch.math.sym_eig import eigvals3
 from geoflowslam_tpu_torch.ops import gicp as TG
 from geoflowslam_tpu_torch.ops import pointcloud as TP
 
@@ -77,7 +78,7 @@ def test_sym3_helpers_match_reference():
     a = rs.randn(64, 3, 3).astype(np.float32)
     a = a @ a.transpose(0, 2, 1) + np.eye(3, dtype=np.float32) * 1e-3
     a[0] = np.eye(3)                              # isotropic: +z fallback
-    np.testing.assert_allclose(TP.sym3_eigvals(_t(a)).numpy(),
+    np.testing.assert_allclose(eigvals3(_t(a)).numpy(),
                                np.asarray(JP.sym3_eigvals(jnp.asarray(a))),
                                atol=1e-4, rtol=1e-4)
     vj = np.asarray(JP.smallest_eigvec_sym3(jnp.asarray(a)))

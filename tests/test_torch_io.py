@@ -275,7 +275,8 @@ def test_dataset_readers_equal(tmp_path):
                         JD.imu_between(rows, t0, t1, cap)):
             np.testing.assert_array_equal(a, b)
     euroc = tmp_path / "euroc"
-    FX.export_euroc(str(euroc), n_frames=3, width=64, height=48)
+    FX.export_euroc(str(euroc), n_frames=3, width=64, height=48,
+                    device="cpu")
     fj, ij = JD.load_euroc(str(euroc))
     ft, it = D.load_euroc(str(euroc))
     assert [dataclasses.astuple(x) for x in fj] == [
@@ -386,8 +387,10 @@ T_odom_w: !!opencv-matrix
 
 def test_yaml_compat_equal(tmp_path):
     seq = str(tmp_path / "tum")
-    _, tum_yaml, _ = FX.export_tum_rgbd(seq, n_frames=2, width=64, height=48)
-    FX.export_euroc(str(tmp_path / "euroc"), n_frames=2, width=64, height=48)
+    _, tum_yaml, _ = FX.export_tum_rgbd(seq, n_frames=2, width=64, height=48,
+                                        device="cpu")
+    FX.export_euroc(str(tmp_path / "euroc"), n_frames=2, width=64, height=48,
+                    device="cpu")
     (tmp_path / "fisheye.yaml").write_text(_FISHEYE)
     (tmp_path / "radtan.yaml").write_text(_RADTAN)
     cases = [(tum_yaml, "rgbd"), (tum_yaml, None),
@@ -435,9 +438,9 @@ def test_fixtures_equal_to_jax(tmp_path):
     kw = dict(n_frames=4, fps=10.0, width=160, height=120)
     j, t = tmp_path / "j", tmp_path / "t"
     JFX.export_tum_rgbd(str(j / "tum"), **kw)
-    FX.export_tum_rgbd(str(t / "tum"), **kw)
+    FX.export_tum_rgbd(str(t / "tum"), device="cpu", **kw)
     JFX.export_euroc(str(j / "euroc"), **kw)
-    FX.export_euroc(str(t / "euroc"), **kw)
+    FX.export_euroc(str(t / "euroc"), device="cpu", **kw)
     for rel in ("tum/assoc.txt", "tum/settings.yaml",
                 "euroc/mav0/cam0/data.csv", "euroc/settings.yaml"):
         assert (j / rel).read_text() == (t / rel).read_text(), rel

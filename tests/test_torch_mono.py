@@ -22,7 +22,10 @@ within 1e-3, pt_valid >= 99% equal, points where both are valid within
 on the 0.1 s pair, whose 1 cm baseline makes far points ill-conditioned,
 within 5e-3 (median) and 2e-2 (90th percentile); create_initial_map_mono and triangulate_new_points on one converted
 JAX map: the same masks and bindings, positions within 5e-4 (the float32
-triangulation's reach, see tests/test_torch_stereo.py)."""
+triangulation's reach, see tests/test_torch_stereo.py); the sync-free F
+solve against the SVD on the initializer's hypotheses (its docstring
+gives the tolerances), and the initializer on it within the tolerances
+above."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -293,6 +296,10 @@ PTS_TOL = {(0, 1): (5e-3, 90, 2e-2), (0, 2): (1e-3, 100, 2e-3)}
 
 @pytest.mark.parametrize("pair", [(0, 1), (0, 2)])
 def test_two_view_reconstruct_and_try_init(room_frames, pair, monkeypatch):
+    _check_two_view(room_frames, pair, monkeypatch)
+
+
+def _check_two_view(room_frames, pair, monkeypatch):
     (j1, t1), (j2, t2) = room_frames[pair[0]], room_frames[pair[1]]
     key = jax.random.PRNGKey(1234 + pair[1])
     rj = JMI.try_monocular_init(key, j1, j2, FX, FX, CX, CY)
@@ -315,6 +322,45 @@ def test_two_view_reconstruct_and_try_init(room_frames, pair, monkeypatch):
     # |t| = 1 here: compare at the reference's median depth
     unit = float(np.median(np.array(wj[3])[np.array(wj[4]), 2]))
     _check_init(wt[:5], wj, wt[5], use_h, PTS_TOL[pair], unit)
+
+
+@pytest.mark.parametrize("pair", [(0, 1), (0, 2)])
+def test_jacobi_f_solve_matches_svd_on_the_init_pairs(room_frames, pair,
+                                                      monkeypatch):
+    """The sync-free F solve (math/sym_eig's float64 null vector, the OF
+    stage's) against the float32 SVD that the initializer keeps, on the
+    initializer's own F hypotheses: the normalized F agree to float32
+    rounding (median 1e-5; an ill-conditioned set reaches ~1e-3), the
+    RANSAC keeps the same inliers with the score within 1e-5, and the
+    initializer run on the Jacobi solve meets the SVD run's tolerances
+    against JAX."""
+    (j1, t1), (j2, t2) = room_frames[pair[0]], room_frames[pair[1]]
+    key = jax.random.PRNGKey(1234 + pair[1])
+    rj = JMI.try_monocular_init(key, j1, j2, FX, FX, CX, CY)
+    valid = _t(np.array(rj.match_idx >= 0))
+    uv2 = t2.feat.uv[torch.clamp_min(_t(np.array(rj.match_idx)), 0).long()]
+    sets = _JaxNoise(key)(None, valid, 128, 8)
+    u1n, _ = TR._normalize_2d(t1.feat.uv, valid)
+    u2n, _ = TR._normalize_2d(uv2, valid)
+    fs = [TR._solve_f_8pt(u1n[sets], u2n[sets], svd).double()
+          for svd in (True, False)]
+    fs = [f / torch.linalg.norm(f.flatten(1), dim=1)[:, None, None]
+          for f in fs]
+    sign = torch.sign(torch.sum((fs[0] * fs[1]).flatten(1), dim=1))
+    d = torch.amax(torch.abs(fs[0] - sign[:, None, None] * fs[1]), (1, 2))
+    assert float(torch.median(d)) < 1e-4 and float(d.max()) < 5e-3
+    rs, rn = (TR.ransac_fundamental(None, t1.feat.uv, uv2, valid, 128,
+                                    sample_sets=sets, svd=svd)
+              for svd in (True, False))
+    assert torch.equal(rs.inliers, rn.inliers)
+    assert abs(float(rs.score) - float(rn.score)) <= 1e-5 * float(rs.score)
+    fundamental = TR.ransac_fundamental
+
+    def jacobi_f(*args, **kw):
+        return fundamental(*args, **{**kw, "svd": False})
+
+    monkeypatch.setattr(TR, "ransac_fundamental", jacobi_f)
+    _check_two_view(room_frames, pair, monkeypatch)
 
 
 def test_nanmedian_is_numpys():

@@ -184,7 +184,7 @@ def test_atlas_roundtrip(tmp_path):
     ms = _random_map(np.random.default_rng(0))
     p = str(tmp_path / "atlas")
     S.save_atlas(p, ms, extra={"seq": "test", "time_base": 1.4e9})
-    ms2, extra = S.load_atlas(p + ".npz")
+    ms2, extra = S.load_atlas(p + ".npz", device="cpu")
     assert extra == {"seq": "test", "time_base": 1.4e9}
     ref = M.create(1, 1, 1, "cpu")
     for f in ms._fields:
@@ -214,9 +214,9 @@ def test_vocab_checksum_equal_and_gate(tmp_path):
     ms = M.create(4, 16, 64, "cpu")
     p = str(tmp_path / "a")
     S.save_atlas(p, ms, vocab=tv)
-    S.load_atlas(p + ".npz", vocab=tv)
+    S.load_atlas(p + ".npz", vocab=tv, device="cpu")
     with pytest.raises(ValueError, match="checksum"):
-        S.load_atlas(p + ".npz", vocab=v2)
+        S.load_atlas(p + ".npz", vocab=v2, device="cpu")
     # the JAX package's gate reads the port's digest as its own
     JS.load_atlas(p + ".npz", vocab=JV.default_vocabulary())
     _, tcfg = _configs()
