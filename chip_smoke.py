@@ -77,9 +77,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      pass, and timed;
  10. merge: an Atlas break and merge at full width with LoopConfig() and
      the shipped vocabulary (see phase_merge): OK, a merge or loop, >= 90%
-     of the KFs in the active map, K2 launched and exactly one K4 launch
-     per loop check and per relocalization attempt; ms of the
-     loop-correcting KF frame;
+     of the KFs in the active map, the first loop or merge closed exactly
+     `fused_lag` processed frames after the KF whose detection matured
+     (both frames printed), K2 launched and exactly one K4 launch per loop
+     check and per relocalization attempt; ms of the loop-correcting
+     frame;
  11. hard: the first HARD_FRAMES frames (20 s at 30 fps) of the hard-mode
      sequence through the configuration of
      geoflowslam_tpu_torch/tools/run_hardmode.py (640x480, 1000 features, 8
@@ -208,10 +210,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
 The paths rgbd, of_icp, g1 (their last PATH_SYNC frames), hard
 (HARD_SYNC), inertial (SYNC_WINDOW) and inertial_geoflow (GEOFLOW_SYNC)
 count host syncs inside the entry points with CUDA sync debugging, apart
-for the frames through the fused frame step without a KF, the KF frames
-and the others (SyncSplit), beside the readings before the fused step
-(SYNCS_BEFORE); the fused frames without a KF must average at most
-MAX_FUSED_SYNCS.
+for the frames through the fused frame step without a KF, the fused KF
+frames, the frames where a loop candidate matured or the slot mirror
+resynced, the staged KF frames and the others (SyncSplit), beside the
+readings before the fused step (SYNCS_BEFORE); the fused frames without a
+KF must average at most MAX_FUSED_SYNCS on each path, and the fused KF
+frames of all of them, pooled, at most MAX_FUSED_KF_SYNCS over at least
+MIN_FUSED_KF_FRAMES frames (the sites of the syncs left printed).
+Launch counts are read after map_stats() has applied the deferred KF
+results (a matured loop check launches K4 and K2).
 The inertial path (12) also writes its session before frame SESSION_AT,
 restores it into a fresh SlamSystem and drives the last frames again: the
 restored counts equal the saved ones, OK with the IMU initialized, the
@@ -978,7 +985,7 @@ def run_path(tag, cfg, fps, summary, expect, render=None, track=None,
         if stop is not None and stop(slam, i):
             n_frames, gt = i + 1, gt[:i + 1]
             break
-    launches = dict(kernels.launch_counts)
+    launches = _settled_launches(slam)
 
     stats = slam.map_stats()
     traj = slam.trajectory
@@ -1770,7 +1777,7 @@ def phase_reloc(summary, voc):
     for i in (5, 6, 7):
         g, d, _ = seq.frame(i / RECOVER_FPS)
         pose = slam.track_rgbd(g, d, t + 0.5 + i / RECOVER_FPS)
-    launches = dict(kernels.launch_counts)
+    launches = _settled_launches(slam)
     n_attempts = len(all_attempts)
     err = float(np.linalg.norm(pose[:3, 3] - first[7][:3, 3]))
     st = slam.map_stats()
@@ -1872,7 +1879,7 @@ def _merge_run(tag, loop, voc, summary, mesh=None):
             events.append((i, frame_ms[-1]))
         if events and i >= events[0][0] + 6:
             break
-    launches = dict(kernels.launch_counts)
+    launches = _settled_launches(slam)
     st = slam.map_stats()
     valid = slam.ms.kf_valid.cpu().numpy()
     share = float((slam.ms.kf_map_id.cpu().numpy()[valid]
@@ -1895,9 +1902,18 @@ def _merge_run(tag, loop, voc, summary, mesh=None):
     print(f"[{tag}] ms of the loop-correcting KF frame(s): "
           f"{[(i, round(ms, 2)) for i, ms in events]}; median frame "
           f"{np.median(frame_ms):.2f} ms")
+    # the fused KF step defers loop detection: a candidate that matured at
+    # a KF is verified and closed fused_lag processed frames later
+    lag = [b - a for a, b in slam.loop_events]
+    print(f"[{tag}] (detecting KF's frame, correcting frame) of each loop "
+          f"or merge: {slam.loop_events}, {lag} frames apart (fused_lag "
+          f"{cfg.fused_lag})")
     if st["state"] != "OK" or not events or not share >= 0.9:
         raise AssertionError(f"{tag} failed: {st}, {len(events)} "
                              f"loop/merge events, KF share {share}")
+    if not lag or lag[0] != cfg.fused_lag:
+        raise AssertionError(f"{tag}: the first loop or merge landed {lag} "
+                             f"frames after its KF, not {cfg.fused_lag}")
     print(f"[{tag}] {len(checks)} loop checks, {len(attempts)} "
           f"relocalization attempts on the path")
     if not checks:
@@ -2187,7 +2203,7 @@ def phase_hard(summary, voc):
         if not split.active:
             ms_per_frame.append((time.perf_counter() - t1) * 1000.0)
         gt.append((t_abs, twc_gt[i]))
-    launches = dict(kernels.launch_counts)
+    launches = _settled_launches(slam)
     stats = slam.map_stats()
     traj = slam.trajectory
     poses = np.stack([p for _, p in traj])
@@ -2234,19 +2250,42 @@ def inertial_config() -> SystemConfig:
                         loop=LoopConfig())
 
 
-def _count_syncs(fn):
+def _count_syncs(fn, sites=None):
     """Run fn() with CUDA sync debugging on; returns (its result, the
-    number of synchronizing calls it made)."""
+    number of synchronizing calls it made). With a list `sites`, the
+    innermost frame of the port's package (file:line) of each call is
+    appended to it."""
+    import traceback
     import warnings
-    with warnings.catch_warnings(record=True) as caught:
+    n = [0]
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        n[0] += 1
+        if sites is not None:
+            frames = [f for f in traceback.extract_stack()
+                      if "geoflowslam_tpu_torch" in f.filename]
+            f = frames[-1] if frames else None
+            sites.append("geoflowslam_tpu_torch"
+                         f"{f.filename.split('geoflowslam_tpu_torch')[-1]}"
+                         f":{f.lineno}" if f else f"{filename}:{lineno}")
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    n = sum("synchroniz" in str(w.message) for w in caught)
-    return out, n
+    return out, n[0]
+
+
+def _settled_launches(slam):
+    """The launch counts once every deferred KF result of `slam` is applied
+    (map_stats drains them: a matured loop check launches K4 and K2)."""
+    slam.map_stats()
+    return dict(kernels.launch_counts)
 
 
 SYNCS_BEFORE = {"rgbd": 3.0, "of_icp": 3.0, "g1": 3.0, "hard": 3.0,
@@ -2254,25 +2293,43 @@ SYNCS_BEFORE = {"rgbd": 3.0, "of_icp": 3.0, "g1": 3.0, "hard": 3.0,
 # host syncs a frame before the fused frame step (PERF.md §5: RGB-D 3 a
 # frame by count, the inertial paths measured with CUDA sync debugging)
 MAX_FUSED_SYNCS = 1.0   # gate: host syncs a fused frame without a KF
+MAX_FUSED_KF_SYNCS = 2.0   # gate: host syncs a fused KF frame (the mirror
+                           # clean, no loop candidate matured), pooled over
+MIN_FUSED_KF_FRAMES = 8    # at least this many of the sync windows' frames
+FUSED_KF_SYNCS: list = []  # (path, syncs) of each such frame, this process
+FUSED_KF_SITES: dict = {}  # file:line -> syncs at it on those frames
 
 
 class SyncSplit:
     """Host syncs inside the system's RGB-D entry points (CUDA sync
     debugging) while `active`, kept apart for the frames that went through
-    the fused frame step without a KF, the frames that inserted a KF, and
-    the others (staged, initialization). Wraps the instance's entry points
-    and its fused step; the calling loop's own reads between frames are
-    not counted."""
+    the fused frame step without a KF, the fused KF frames (a KF through
+    the fused KF step, the mirror clean and no loop candidate matured:
+    their syncs go to FUSED_KF_SYNCS, and their sites to FUSED_KF_SITES),
+    the frames where a loop candidate matured or the slot mirror resynced,
+    the frames whose KF took the staged KF step (with use_lidar a tracked
+    fused frame's KF does), and the others (staged, initialization). Wraps
+    the instance's entry points, its fused step and its staged KF step;
+    the calling loop's own reads between frames are not counted."""
+
+    KINDS = ("fused", "kf_fused", "kf_event", "kf_staged", "other")
 
     def __init__(self, slam):
-        self.slam, self.fused, self.active = slam, False, False
-        self.counts = {"fused": [], "kf": [], "other": []}
+        self.slam, self.active = slam, False
+        self.fused = self.staged_kf = False
+        self.counts = {k: [] for k in self.KINDS}
         track_fused = slam._track_fused
+        staged_kf = slam._insert_keyframe_staged
 
         def flagged(*a, **k):
             self.fused = True
             return track_fused(*a, **k)
+
+        def flagged_kf(*a, **k):
+            self.staged_kf = True
+            return staged_kf(*a, **k)
         slam._track_fused = flagged
+        slam._insert_keyframe_staged = flagged_kf
         for name in ("track_rgbd", "track_rgbd_inertial"):
             setattr(slam, name, self._counted(getattr(slam, name)))
 
@@ -2280,32 +2337,63 @@ class SyncSplit:
         def counted(*a, **k):
             if not self.active:
                 return entry(*a, **k)
-            self.fused = False
-            kfs = self.slam._gen_counter
-            out, n = _count_syncs(lambda: entry(*a, **k))
-            kind = ("kf" if self.slam._gen_counter != kfs
-                    else "fused" if self.fused else "other")
+            self.fused = self.staged_kf = False
+            s = self.slam
+            before = (s._gen_counter, s.n_mirror_syncs, s.n_loop_matured)
+            sites = []
+            out, n = _count_syncs(lambda: entry(*a, **k), sites)
+            kf = s._gen_counter != before[0]
+            if (s.n_mirror_syncs, s.n_loop_matured) != before[1:]:
+                kind = "kf_event"
+            elif kf:
+                kind = ("kf_fused" if self.fused and not self.staged_kf
+                        else "kf_staged")
+            else:
+                kind = "fused" if self.fused else "other"
             self.counts[kind].append(n)
+            if kind == "kf_fused":
+                FUSED_KF_SYNCS.append(n)
+                for site in sites:
+                    FUSED_KF_SITES[site] = FUSED_KF_SITES.get(site, 0) + 1
             return out
         return counted
 
     def report(self, tag, first, last):
         """Print the split and gate the fused frames without a KF (at most
-        MAX_FUSED_SYNCS a frame on average, over at least 10 of them)."""
+        MAX_FUSED_SYNCS a frame on average, over at least 10 of them); the
+        fused KF frames are gated pooled over the paths (gate_fused_kf)."""
         mean = {k: (float(np.mean(v)) if v else float("nan"), len(v))
                 for k, v in self.counts.items()}
         print(f"[{tag}] host syncs a frame over frames {first}..{last}: "
               f"fused without a KF {mean['fused'][0]:.2f} "
-              f"({mean['fused'][1]} frames), KF frames {mean['kf'][0]:.2f} "
-              f"({mean['kf'][1]}), other {mean['other'][0]:.2f} "
-              f"({mean['other'][1]}); {SYNCS_BEFORE[tag]:.2f} a frame before "
-              f"the fused step")
+              f"({mean['fused'][1]} frames), fused KF frames "
+              f"{mean['kf_fused'][0]:.2f} ({mean['kf_fused'][1]}), a loop "
+              f"matured or the mirror resynced {mean['kf_event'][0]:.2f} "
+              f"({mean['kf_event'][1]}), staged KF frames "
+              f"{mean['kf_staged'][0]:.2f} ({mean['kf_staged'][1]}), other "
+              f"{mean['other'][0]:.2f} ({mean['other'][1]}); "
+              f"{SYNCS_BEFORE[tag]:.2f} a frame before the fused step")
         if mean["fused"][1] < 10 or not mean["fused"][0] <= MAX_FUSED_SYNCS:
             raise AssertionError(
                 f"{tag}: {mean['fused'][0]} host syncs a fused frame without "
                 f"a KF over {mean['fused'][1]} frames (gate "
                 f"{MAX_FUSED_SYNCS} over >= 10)")
         return mean
+
+
+def gate_fused_kf(syncs, sites):
+    """Gate the fused KF frames of every sync window pooled: at most
+    MAX_FUSED_KF_SYNCS host syncs a frame on average over at least
+    MIN_FUSED_KF_FRAMES frames; print the sites of the syncs left."""
+    mean = float(np.mean(syncs)) if syncs else float("nan")
+    print(f"[syncs] fused KF frames of the sync windows: {mean:.2f} host "
+          f"syncs a frame over {len(syncs)} frames (72-82 when the mapping "
+          f"step read the device); sites "
+          f"{dict(sorted(sites.items(), key=lambda x: -x[1]))}")
+    if len(syncs) < MIN_FUSED_KF_FRAMES or not mean <= MAX_FUSED_KF_SYNCS:
+        raise AssertionError(
+            f"{mean} host syncs a fused KF frame over {len(syncs)} frames "
+            f"(gate {MAX_FUSED_KF_SYNCS} over >= {MIN_FUSED_KF_FRAMES})")
 
 
 def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
@@ -2384,7 +2472,7 @@ def _drive_inertial(tag, cfg, voc, n_frames, sync=SYNC_WINDOW, viba2=True,
                 session["positions"].append(slam.current_pose_wc()[:3, 3])
     finally:
         LM.vi_ba_step = vi_ba_step
-    launches = dict(kernels.launch_counts)
+    launches = _settled_launches(slam)
     stats = slam.map_stats()
     traj = slam.trajectory
     poses = np.stack([p for _, p in traj])
@@ -2976,6 +3064,8 @@ def run_path_group(group: int, out_dir: str) -> int:
               for k, v in summary.items()}
     with open(f"{out_dir}/counts_{group}.json", "w") as f:
         json.dump(counts, f)
+    with open(f"{out_dir}/fused_kf_{group}.json", "w") as f:
+        json.dump({"syncs": FUSED_KF_SYNCS, "sites": FUSED_KF_SITES}, f)
     if MONO_K4:
         torch.save(MONO_K4, f"{out_dir}/mono_k4.pt")
     return 0
@@ -3011,12 +3101,19 @@ def run_paths(summary) -> None:
     bad = [g for g, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise AssertionError(f"path groups {bad} failed")
+    syncs, sites = [], {}
     for g in range(len(PATH_GROUPS)):
         with open(f"{out_dir}/counts_{g}.json") as f:
             for k, v in json.load(f).items():
                 summary[k]["launches"] += v["launches"]
                 summary[k]["launches_per_frame"].update(
                     v["launches_per_frame"])
+        with open(f"{out_dir}/fused_kf_{g}.json") as f:
+            kf = json.load(f)
+        syncs += kf["syncs"]
+        for site, n in kf["sites"].items():
+            sites[site] = sites.get(site, 0) + n
+    gate_fused_kf(syncs, sites)
     MONO_K4.update(torch.load(f"{out_dir}/mono_k4.pt"))
     shutil.rmtree(out_dir, ignore_errors=True)
 

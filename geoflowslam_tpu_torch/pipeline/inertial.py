@@ -26,7 +26,7 @@ from geoflowslam_tpu_torch.ops.indexing import scatter_set
 from geoflowslam_tpu_torch.solvers import inertial as VI
 from geoflowslam_tpu_torch.solvers.inertial_ba import ImuSegments
 from geoflowslam_tpu_torch.state import map_state as M
-from geoflowslam_tpu_torch.utils.device_const import upload
+from geoflowslam_tpu_torch.utils.device_const import stage, upload
 
 INIT_W = 10   # KF window of the initialization and the scale refinement
               # (the reference initializes over ~10 recent KFs)
@@ -237,7 +237,7 @@ class InertialTracker:
         arrays = {k: np.stack([np.asarray(x, np.float32) for x in v])
                   for k, v in cols.items()}
         flat = np.concatenate([a.reshape(-1) for a in arrays.values()])
-        buf = torch.from_numpy(flat).to(self.device)
+        buf = stage(flat, self.device)
         out, i = {}, 0
         for k, a in arrays.items():
             out[k] = buf[i:i + a.size].reshape(a.shape)

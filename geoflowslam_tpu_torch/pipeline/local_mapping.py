@@ -56,8 +56,10 @@ def select_window(ms: M.MapState, center_kf: int, cfg: MappingConfig):
     dev = ms.kf_valid.device
     inc = M.observation_incidence(ms)
     cov = M.covisibility(ms, incidence=inc)
-    row = cov[center_kf] * ms.kf_valid * (ms.kf_map_id == ms.active_map)
-    row[center_kf] = 1 << 20
+    ci = M.slot_index(center_kf, dev)
+    row = (M.take_row(cov, center_kf) * ms.kf_valid
+           * (ms.kf_map_id == ms.active_map))
+    row.index_fill_(0, ci, 1 << 20)
     vals, idx = topk_stable(row, cfg.window_opt)
     opt_mask_k = torch.zeros((ms.k_max,), dtype=torch.bool, device=dev)
     opt_mask_k[idx] = vals > 0
@@ -65,8 +67,9 @@ def select_window(ms: M.MapState, center_kf: int, cfg: MappingConfig):
     window_mps = (opt_mask_k.float() @ inc) > 0
     sees_window = (inc @ window_mps.float()) > 0
     ring = sees_window & ~opt_mask_k & ms.kf_valid
-    rvals, ridx = topk_stable(ring.to(torch.int32) * (1 + cov[center_kf]),
-                              cfg.window_fixed)
+    rvals, ridx = topk_stable(
+        ring.to(torch.int32) * (1 + M.take_row(cov, center_kf)),
+        cfg.window_fixed)
     kf_idx = torch.cat([idx, ridx])
     in_win = torch.cat([vals > 0, rvals > 0])
     fixed = torch.cat([torch.zeros((cfg.window_opt,), dtype=torch.bool,
@@ -75,17 +78,13 @@ def select_window(ms: M.MapState, center_kf: int, cfg: MappingConfig):
                                   device=dev)])
     n_fixed = (fixed & in_win).sum()
     times = torch.where(in_win & ~fixed, ms.kf_time[kf_idx], float("inf"))
-    oldest1 = torch.argmin(times)
-    times2 = times.clone()
-    times2[oldest1] = float("inf")
-    oldest2 = torch.argmin(times2)
-    fixed1 = fixed.clone()
-    fixed1[oldest1] = True
-    fixed = torch.where(n_fixed >= 1, fixed, fixed1)
+    oldest1 = torch.argmin(times).reshape(1)
+    oldest2 = torch.argmin(times.index_fill(0, oldest1, float("inf")))
+    fixed = torch.where(n_fixed >= 1, fixed,
+                        fixed.index_fill(0, oldest1, True))
     n_fixed = (fixed & in_win).sum()
-    fixed2 = fixed.clone()
-    fixed2[oldest2] = True
-    fixed = torch.where(n_fixed >= 2, fixed, fixed2)
+    fixed = torch.where(n_fixed >= 2, fixed,
+                        fixed.index_fill(0, oldest2.reshape(1), True))
     return kf_idx, in_win, fixed
 
 
@@ -192,14 +191,15 @@ def keyframe_culling(ms: M.MapState, center_kf: int,
     redundant_pts = own & (n_obs[None, :] >= min_obs_level)
     n_own = torch.clamp_min(own.sum(dim=1), 1)
     frac = redundant_pts.sum(dim=1) / n_own
-    protected = ms.kf_time >= ms.kf_time[center_kf] - protect_recent
+    protected = ms.kf_time >= M.take_row(ms.kf_time, center_kf) \
+        - protect_recent
     cand = (ms.kf_valid & ~protected & ~(ms.kf_prev < 0)
             & (ms.kf_map_id == ms.active_map) & (frac > redundancy)
             & (own.sum(dim=1) > 20))
     best = torch.argmax(torch.where(cand, frac, -1.0))
-    do_cull = cand[best]
-    culled = ms._replace(kf_prev=torch.where(ms.kf_prev == best,
-                                             ms.kf_prev[best], ms.kf_prev))
+    do_cull = M.take_row(cand, best)
+    culled = ms._replace(kf_prev=torch.where(
+        ms.kf_prev == best, M.take_row(ms.kf_prev, best), ms.kf_prev))
     culled = M.erase_keyframe(culled, best)
     ms = ms._replace(**{f: torch.where(do_cull, getattr(culled, f),
                                        getattr(ms, f))
@@ -365,22 +365,24 @@ def _fuse_into(ms: M.MapState, center_kf: int, kf, enabled,
     """Fuse the centre KF's map points into duplicates observed by `kf`:
     project, match by descriptor within radius_px, relabel the newer slot
     onto the older one everywhere (MapPoint::Replace)."""
-    obs_c = ms.kf_obs_mp[center_kf]
+    obs_c = M.take_row(ms.kf_obs_mp, center_kf)
     mp = torch.clamp_min(obs_c, 0).long()
-    rot, t = ms.kf_rot[kf], ms.kf_t[kf]
+    rot, t = M.take_row(ms.kf_rot, kf), M.take_row(ms.kf_t, kf)
     pc = ms.mp_pos[mp] @ rot.T + t
     z = torch.where(torch.abs(pc[:, 2]) < 1e-6, 1e-6, pc[:, 2])
     u = cfg.fx * pc[:, 0] / z + cfg.cx
     v = cfg.fy * pc[:, 1] / z + cfg.cy
     inb = (z > 0.1) & (u >= 0) & (u < 2 * cfg.cx) & (v >= 0) \
         & (v < 2 * cfg.cy)
-    q_valid = (obs_c >= 0) & inb & ms.kf_valid[kf]
+    q_valid = (obs_c >= 0) & inb & M.take_row(ms.kf_valid, kf)
     radius = torch.full((obs_c.shape[0],), radius_px, device=z.device)
     m_idx, _ = matching.search_by_projection(
         torch.stack([u, v], dim=1), torch.zeros_like(obs_c), q_valid,
-        ms.mp_desc[mp], ms.kf_uv[kf], ms.kf_level[kf], ms.kf_desc[kf],
-        ms.kf_kp_valid[kf], radius, max_dist=TH_LOW)
-    other = ms.kf_obs_mp[kf][torch.clamp_min(m_idx, 0).long()].long()
+        ms.mp_desc[mp], M.take_row(ms.kf_uv, kf),
+        M.take_row(ms.kf_level, kf), M.take_row(ms.kf_desc, kf),
+        M.take_row(ms.kf_kp_valid, kf), radius, max_dist=TH_LOW)
+    other = M.take_row(ms.kf_obs_mp, kf)[
+        torch.clamp_min(m_idx, 0).long()].long()
     dup = (m_idx >= 0) & (other >= 0) & (other != mp) & enabled
     keep = torch.where(other < mp, other, mp)
     drop = torch.where(other < mp, mp, other)
@@ -393,7 +395,7 @@ def _fuse_into(ms: M.MapState, center_kf: int, kf, enabled,
                               relabel[torch.clamp_min(obs_all, 0).long()],
                               obs_all)
     dead = torch.zeros((m + 1,), dtype=torch.bool, device=z.device)
-    dead[torch.where(dup, drop, m)] = True
+    dead.index_fill_(0, torch.where(dup, drop, m), True)
     return ms._replace(kf_obs_mp=new_obs_all, mp_valid=ms.mp_valid & ~dead[:m])
 
 
@@ -430,8 +432,8 @@ def refresh_point_stats(ms: M.MapState, center_kf: int, n_window: int = 10,
     if cov is None:
         cov = M.covisibility(ms)
     dev = ms.kf_valid.device
-    row = (cov[center_kf] * ms.kf_valid).clone()
-    row[center_kf] = 1 << 20
+    row = M.take_row(cov, center_kf) * ms.kf_valid
+    row.index_fill_(0, M.slot_index(center_kf, dev), 1 << 20)
     _, kf_win = topk_stable(row, min(n_window, ms.k_max))       # [W]
     w = kf_win.shape[0]
     m = ms.m_max
@@ -591,8 +593,7 @@ def vi_ba_step(ms: M.MapState, win: VIWindow, cfg: MappingConfig):
     glue around solvers/inertial_ba.vi_local_ba). Returns (ms, number of
     BA observations)."""
     kw = win.slots.shape[0]
-    fixed = torch.zeros((kw,), dtype=torch.bool, device=win.slots.device)
-    fixed[0] = True
+    fixed = torch.arange(kw, device=win.slots.device) == 0
     prob_vis, mp_idx, mp_in, ctx = extract_ba_problem(
         ms, win.slots, win.slot_valid, fixed, cfg)
     kr = _clamped(ms, win.slots)

@@ -36,6 +36,7 @@ from geoflowslam_tpu_torch.retrieval import kf_database as DB
 from geoflowslam_tpu_torch.retrieval import vocab as V
 from geoflowslam_tpu_torch.solvers import pose_graph as PG
 from geoflowslam_tpu_torch.state import map_state as M
+from geoflowslam_tpu_torch.utils.device_const import HostCopy
 
 
 def extract_essential_edges(ms: M.MapState, cur: int, cand: int, s, rot, t,
@@ -175,7 +176,8 @@ def detect_step(vocab: V.Vocabulary, db: DB.KFDatabase, ms: M.MapState,
     db = DB.set_entry(db, kf_slot, qvec)
     ok = cand_ok & (cand_score >= min_score)
     groups = cov[cand_idx.long()] > 0                          # [n_best, K]
-    groups[torch.arange(n_best, device=dev), cand_idx.long()] = True
+    groups[torch.arange(n_best, device=dev), cand_idx.long()] = torch.ones(
+        (), dtype=torch.bool, device=dev)
     groups = groups & ok[:, None]
     overlap = (groups.float() @ prev_groups.float().T) > 0
     inherited = torch.max(torch.where(overlap, prev_counts[None, :], 0),
@@ -254,15 +256,27 @@ class LoopCloser:
                 return int(cand)
         return None
 
-    def on_keyframe(self, ms: M.MapState, kf_slot: int,
-                    inertial: bool = False,
-                    kf_clouds: Optional[dict] = None):
-        """Detect, and for a matured candidate verify and correct.
-        Returns (ms, loop_found)."""
+    def _detect(self, ms: M.MapState, kf_slot: int) -> torch.Tensor:
+        """One detect_step on the closer's database and chains; returns the
+        [n_cand, 3] scalar tile on the device."""
         self.db, self._groups, self._counts, scalars = detect_step(
             self.vocab, self.db, ms, kf_slot, self._groups, self._counts,
             self.cfg.min_score, self.n_cand)
-        best = self.matured_candidate(scalars.cpu())
+        return scalars
+
+    def begin_detect(self, ms: M.MapState, kf_slot: int) -> HostCopy:
+        """The fused path's detection: one detect_step, its scalar tile
+        copied to the host without a wait (utils/device_const.HostCopy).
+        The caller reads it `fused_lag` frames later and, for a matured
+        candidate, calls `complete_candidate`."""
+        return HostCopy(self._detect(ms, kf_slot))
+
+    def on_keyframe(self, ms: M.MapState, kf_slot: int,
+                    inertial: bool = False,
+                    kf_clouds: Optional[dict] = None):
+        """Detect, and for a matured candidate verify and correct, at once
+        (the staged KF step). Returns (ms, loop_found)."""
+        best = self.matured_candidate(self._detect(ms, kf_slot).cpu())
         if best is None:
             return ms, False
         return self.complete_candidate(ms, int(kf_slot), best,

@@ -21,8 +21,25 @@ a local card needs neither). A registration is accepted only when it
 converged, has enough inliers and moved plausibly (< 0.5 m, < ~20 deg); a
 frame whose visual inliers collapse while the registration held is
 ICP-carried: state OK at the registered pose, the motion model learns the
-registered delta, and a keyframe without bindings every 0.5 s. KF frames
-read the device in the mapping step. Initialization is
+registered delta, and a keyframe without bindings every 0.5 s. A tracked
+fused frame then steps the asynchronous global BA.
+
+A keyframe takes the reference's fused KF step (_insert_keyframe_fused)
+wherever the reference sends it there: the slot from a host mirror of the
+KF slots (the lowest free slot, else the lowest dormant-map slot),
+resynced by one read only after an event that relabels slots; one
+local_mapping.mapping_step, which reads nothing on the host; BA's
+correction folded into the tracked pose. The step's culled KF and, with
+loop closing, the KF's place recognition are copied to the host without a
+wait and applied `fused_lag` processed frames later (_drain_deferred, once
+a fused frame after its outputs are adopted): the cull's bookkeeping (the
+BoW erase, the IMU segment merge, the parent chain, T_culled<-parent from
+the map as it then stands), and for a matured candidate the Sim3
+verification and correction. The staged entry, `trajectory`, `map_stats`,
+`save_atlas`, `save_session` and `shutdown` first apply them all; `reset`
+and `reset_active_map` drop them. So a fused KF frame reads the device once
+(its packet), once more when the mirror must be resynced or a loop
+candidate matured. Initialization is
 StereoInitialization. A KF-stall watchdog counts (`kf_stall_warnings`) and
 warns when no keyframe has landed for 10 s of tracking.
 
@@ -55,10 +72,11 @@ the last KF-anchored state, or jointly with the last frame's state under its
 marginal, and take the VI state when it keeps max(min_inliers_ok, half the
 visual inliers). A lost frame dead-reckons the prediction; KFs come at
 least every 0.5 s, and while lost (InsertKFsWhenLost). Without a vocabulary
-the failed frame does the same (the reference re-runs it through its staged
-step from its already dead-reckoned outputs; ROADMAP.md Queue 3) and the
-frames after it, which start RECENTLY_LOST, take the staged
-step (below). Until the IMU is
+the failed frame is re-run through the staged step from its adopted,
+dead-reckoned outputs, as the reference re-runs it (the VI prior cleared,
+the bias the frame preintegration's, the prediction made over the same gap
+a second time; ROADMAP.md Queue 3), and the frames after it, which start
+RECENTLY_LOST, take the staged step (below). Until the IMU is
 initialized a KF takes the reference's staged KF step, which attempts the
 initialization; after it, the mapping step runs VI-BA over the temporal
 window (8 KFs, 16 for VIBA1 and VIBA2). An ICP-carried frame on the fused
@@ -139,11 +157,12 @@ the KF.
 With a vocabulary (`SlamSystem(cfg, device, vocab=...)`) every KF enters a
 BoW database (the loop closer's, or a standalone one without loop
 closing). With `cfg.loop` as well, each KF runs place recognition after
-its mapping step, and a verified loop is closed at once
-(pipeline/loop_closing.py: Atlas merge or pose graph, seam welding), the
-current pose carried along and the global BA restarted as per-frame
-micro-steps (local_mapping.AsyncGBA). Loop detection acts at the KF rather
-than `fused_lag` frames later, in both modes. With a mesh
+its mapping step; a matured candidate is verified and closed
+(pipeline/loop_closing.py: Atlas merge or pose graph, seam welding)
+`fused_lag` processed frames later after a fused KF step, at once after a
+staged one; the reference KF's correction is carried onto the current
+pose and the global BA restarted as micro-steps (local_mapping.AsyncGBA),
+one on each tracked fused frame and on each staged frame. With a mesh
 (`SlamSystem(cfg, device, vocab, mesh=LandMesh([...]))`) the global BA's
 micro-steps, and the synchronous global BA of `run_global_ba`, run
 landmark-sharded over its devices (parallel/dist_ba.py).
@@ -186,7 +205,7 @@ from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state import serialize as S
 from geoflowslam_tpu_torch.state.frame import (FrameData, build_frame,
                                                check_supported)
-from geoflowslam_tpu_torch.utils.device_const import upload
+from geoflowslam_tpu_torch.utils.device_const import HostCopy, stage, upload
 from geoflowslam_tpu_torch.utils.timers import StageTimers
 from geoflowslam_tpu_torch.viewer.html_export import export_html
 
@@ -261,6 +280,23 @@ class SlamSystem:
         self._gen_counter = 0
         self._culled_rel: dict = {}
         self._last_kf_time = 0.0
+        # the KF step's results that the reference applies `fused_lag`
+        # processed frames later (_drain_deferred): each KF's cull and, with
+        # loop closing, its place recognition, copied to the host without a
+        # wait; and the host mirror of the KF slots (validity, Atlas map, the
+        # temporal parents) from which the KF step picks its slot, resynced
+        # by one read after an event that relabels slots (_mirror_dirty)
+        self._deferred: list = []
+        self._kf_valid_h: Optional[np.ndarray] = None
+        self._kf_map_h: Optional[np.ndarray] = None
+        self._active_map_h = 0
+        self._kf_prev_h: dict = {}
+        self._mirror_dirty = True
+        self.n_mirror_syncs = 0     # mirror resyncs (one host read each)
+        self.n_loop_matured = 0     # matured loop candidates acted on
+        # (processed frame of the detecting KF, processed frame where its
+        # correction landed) of every loop or merge closed
+        self.loop_events: list = []
         # OF/ICP stages: the previous frame (with its filled OF slots), the
         # RANSAC generator, and device-side counters read only on request
         self.last_frame: Optional[FrameData] = None
@@ -440,6 +476,10 @@ class SlamSystem:
                  and self._can_fuse())
         if started and self.imu is not None and not fused:
             staged = True     # the reference's staged step, as it runs it
+        if not fused:
+            # the reference's staged entry first applies every deferred KF
+            # result (its _flush_pending)
+            self._drain_deferred(force=True)
         if (started and self.imu is not None and not staged
                 and self._imu_guard(timestamp)):
             return self.current_pose_wc()
@@ -481,7 +521,8 @@ class SlamSystem:
             else:
                 frame, twc = self._track_frame(frame, timestamp, p_frame,
                                                staged)
-        if self._gba is not None and self._gba.active and self._gba.step():
+        if (not fused and self._gba is not None and self._gba.active
+                and self._gba.step()):
             self._finish_gba()
         if self.cfg.use_of or self.cfg.use_icp:
             self.last_frame = frame
@@ -577,6 +618,10 @@ class SlamSystem:
         return frame._replace(depth_kp=depth, u_right=ur)
 
     def map_stats(self):
+        """KF and map-point counts, Atlas maps and the tracking state, after
+        every deferred KF result is applied (as the reference's map_stats
+        drains its pipeline first)."""
+        self._drain_deferred(force=True)
         return {
             "n_kfs": int(self.ms.kf_valid.sum()),
             "n_mps": int(self.ms.mp_valid.sum()),
@@ -637,7 +682,9 @@ class SlamSystem:
     @property
     def trajectory(self):
         """[(t, Twc 4x4)] with lost frames skipped and every entry rebased
-        onto its reference KF's current pose (SaveTrajectoryTUM)."""
+        onto its reference KF's current pose (SaveTrajectoryTUM), after
+        every deferred KF result is applied."""
+        self._drain_deferred(force=True)
         kf_rot = self.ms.kf_rot.cpu().numpy().astype(np.float64)
         kf_t = self.ms.kf_t.cpu().numpy().astype(np.float64)
         kf_valid = self.ms.kf_valid.cpu().numpy()
@@ -652,6 +699,7 @@ class SlamSystem:
             hops = 0
             while (ref, gen) in self._culled_rel and hops < 64:
                 prev, pgen, tcp = self._culled_rel[(ref, gen)]
+                tcp = np.asarray(tcp, np.float64)
                 r_cr, t_cr = trel[:, :3], trel[:, 3]
                 trel = np.concatenate([r_cr @ tcp[:, :3],
                                        (r_cr @ tcp[:, 3] + t_cr)[:, None]], 1)
@@ -707,7 +755,9 @@ class SlamSystem:
 
     def save_atlas(self, path: str):
         """System::SaveAtlas: the map to <path>.npz (state/serialize.py,
-        the JAX package's format) with the vocabulary checksum."""
+        the JAX package's format) with the vocabulary checksum, after every
+        deferred KF result is applied."""
+        self._drain_deferred(force=True)
         S.save_atlas(path, self.ms, self.vocab,
                      extra={"sensor": self.cfg.sensor,
                             "n_frames": self.n_frames,
@@ -719,6 +769,7 @@ class SlamSystem:
         the ongoing session, as the reference does; tracking starts
         NOT_INITIALIZED on the saved session's time base. Returns the
         atlas's extra metadata."""
+        self._mirror_dirty = True
         ms, extra = S.load_atlas(path, self.vocab, device=self.device)
         self.ms = M.create_new_map(ms)
         self.state = TrackingState.NOT_INITIALIZED
@@ -730,7 +781,9 @@ class SlamSystem:
     def save_session(self, path: str):
         """Checkpoint the whole session (map, tracking, IMU, BoW database)
         so that `load_session` continues it mid-stream
-        (state/serialize.save_session)."""
+        (state/serialize.save_session), after every deferred KF result is
+        applied."""
+        self._drain_deferred(force=True)
         S.save_session(path, self)
 
     def load_session(self, path: str) -> dict:
@@ -744,7 +797,9 @@ class SlamSystem:
         and KeyFrameTrajectory.txt (TUM format, absolute timestamps),
         map.html, globalMap.pcd with use_lidar, and
         Frame2FrameReprojErr.txt / Frame2MapReprojErr.txt when
-        record_reproj_err filled them."""
+        record_reproj_err filled them. Every deferred KF result is applied
+        first, with or without save_dir."""
+        self._drain_deferred(force=True)
         if save_dir is None:
             return
         os.makedirs(save_dir, exist_ok=True)
@@ -772,9 +827,13 @@ class SlamSystem:
     # -- internals -------------------------------------------------------------
 
     def _drop_map(self, ms: M.MapState):
-        """Reinitialize on `ms`: the KF clouds, EdgeICP measurements and
-        local cloud map of the old map go."""
+        """Reinitialize on `ms`: the deferred KF results, the KF clouds,
+        EdgeICP measurements and local cloud map of the old map go, and the
+        slot mirror is resynced at the next KF."""
         self.ms = ms
+        self._deferred.clear()
+        self._mirror_dirty = True
+        self._kf_prev_h.clear()
         self._kf_clouds.clear()
         self._kf_icp_rel.clear()
         self._last_kf_slot = None
@@ -843,21 +902,67 @@ class SlamSystem:
         return float(timestamp) - self.time_base
 
     def _free_kf_slot(self) -> int:
-        """A slot for the next KF; when every slot holds a live KF of the
-        active map, force an aggressive redundancy cull or raise."""
-        if int(M.kf_capacity_left(self.ms)) == 0:
-            ms, culled = LM.keyframe_culling(
-                self.ms, self.ref_kf, protect_recent=0.25, redundancy=0.6)
-            culled_i = int(culled)
-            if culled_i >= 0:
-                self._on_kf_culled(ms, culled_i)
-                self.ms = ms
-            if int(M.kf_capacity_left(self.ms)) == 0:
-                raise RuntimeError(
-                    f"KeyFrame capacity exhausted: all {self.ms.k_max} slots "
-                    "hold live KFs of the active map and none is redundant "
-                    "enough to cull. Raise SystemConfig.k_max.")
+        """A slot for the next KF of the staged KF step (map_state.
+        free_kf_slot's choice, read from the device)."""
+        self._ensure_kf_capacity()
         return int(M.free_kf_slot(self.ms))
+
+    def _ensure_kf_capacity(self):
+        """When every slot holds a live KF of the active map, force an
+        aggressive redundancy cull, or raise."""
+        if int(M.kf_capacity_left(self.ms)) > 0:
+            return
+        ms, culled = LM.keyframe_culling(
+            self.ms, self.ref_kf, protect_recent=0.25, redundancy=0.6)
+        culled_i = int(culled)
+        if culled_i >= 0:
+            self.ms = ms
+            self._on_kf_culled(culled_i)
+        if int(M.kf_capacity_left(self.ms)) == 0:
+            raise RuntimeError(
+                f"KeyFrame capacity exhausted: all {self.ms.k_max} slots "
+                "hold live KFs of the active map and none is redundant "
+                "enough to cull. Raise SystemConfig.k_max.")
+
+    def _host_slot_mirror(self):
+        """(kf_valid, kf_map_id, active map) of the host mirror, resynced
+        from the map in one read when dirty (with the temporal parents of
+        the valid slots)."""
+        if self._mirror_dirty:
+            ms = self.ms
+            rows = torch.stack([
+                ms.kf_valid.to(torch.int32), ms.kf_map_id.to(torch.int32),
+                ms.kf_prev.to(torch.int32),
+                ms.active_map.to(torch.int32).expand(ms.k_max)])
+            h = rows.cpu().numpy()
+            self._kf_valid_h = h[0] > 0
+            self._kf_map_h = h[1].copy()
+            self._active_map_h = int(h[3, 0])
+            self._kf_prev_h = {i: int(p) for i, p in enumerate(h[2])
+                               if self._kf_valid_h[i]}
+            self._mirror_dirty = False
+            self.n_mirror_syncs += 1
+        return self._kf_valid_h, self._kf_map_h, self._active_map_h
+
+    def _fused_kf_slot(self) -> int:
+        """The fused KF step's slot, from the host mirror: the lowest free
+        slot, else the lowest dormant-map slot; with neither, the capacity
+        cull (or its error) and a resync. A culled KF's slot stays taken in
+        the mirror until its cull is applied, `fused_lag` frames later."""
+        kv, km, am = self._host_slot_mirror()
+        free = np.flatnonzero(~kv)
+        if len(free) == 0:
+            dormant = np.flatnonzero(kv & (km != am))
+            if len(dormant):
+                free = dormant
+            else:
+                self._mirror_dirty = True
+                self._ensure_kf_capacity()
+                kv, km, am = self._host_slot_mirror()
+                free = np.flatnonzero(~kv)
+                if len(free) == 0:
+                    free = np.flatnonzero(km != am)
+        return int(free[0])
 
     def _initialize(self, frame: FrameData, timestamp: float):
         if self.cfg.sensor == "mono":
@@ -1176,10 +1281,12 @@ class SlamSystem:
         without samples, "raw" until the IMU is initialized, then "kf" (VI
         against the last KF-anchored state) or "prior" (joint with the last
         frame's state under its marginal). A failed frame without a
-        vocabulary and without an IMU is re-run through the staged step
-        from the state before it; with the IMU it stays dead-reckoned (see
-        the module docstring). Returns the frame with its OF slots
-        filled and the recorded Twc."""
+        vocabulary is re-run through the staged step: without an IMU from
+        the state before it, with one from the adopted outputs (see the
+        module docstring). The deferred KF results are applied after the
+        outputs are adopted, before the frame's decisions; a tracked frame
+        steps the global BA after its KF decision. Returns the frame with
+        its OF slots filled and the recorded Twc."""
         cfg, imu = self.cfg, self.imu
         if imu is None or imu_in is None:
             mode = "off"
@@ -1190,10 +1297,10 @@ class SlamSystem:
         if imu is not None:
             self.imu_modes[mode] = self.imu_modes.get(mode, 0) + 1
         kf_modes = mode in ("kf", "prior")
-        p_frame = None
+        p_host = p_frame = None
         if mode != "off":
-            p_frame = pre.to_device(
-                imu.preintegrate_frame(*imu_in, timestamp), self.device)
+            p_host = imu.preintegrate_frame(*imu_in, timestamp)
+            p_frame = pre.to_device(p_host, self.device)
         recovery = self._fused_mode() and (
             self.state == TrackingState.RECENTLY_LOST
             or self._carried_streak >= 30)
@@ -1208,10 +1315,12 @@ class SlamSystem:
         self.inlier_log.append((round(timestamp, 4), n1, n2))
         if len(self.inlier_log) > 4096:
             del self.inlier_log[:2048]
-        if not ok and aux < 0.5 and not self._fused_mode() and imu is None:
+        rerun = not ok and aux < 0.5 and not self._fused_mode()
+        if rerun and imu is None:
             # the reference re-runs the failed frame through its staged
             # step, from the state before it
             self.n_staged_reruns += 1
+            self._drain_deferred()
             return self._track_frame(out.frame, timestamp)
         self._count_fused(out, timestamp)
         ref, gen = self.ref_kf, self._kf_gen.get(self.ref_kf)
@@ -1226,6 +1335,24 @@ class SlamSystem:
             imu.body = out.body
             imu.set_bias(pkt[28:34], out.bias_out)
             self._vi_prior = out.marg
+        self._drain_deferred()
+        if rerun:
+            # with the IMU the reference re-runs the failed frame through
+            # its staged step from the outputs it adopted: the VI state and
+            # prior cleared, the bias the frame preintegration's, the body
+            # the dead-reckoned prediction, which the staged step predicts
+            # over the same gap once more, the frame its own last frame and
+            # its time the last time (ROADMAP.md Queue 3)
+            self.n_staged_reruns += 1
+            self._vi_prior = None
+            if kf_modes:
+                imu.bias = p_host.bias
+            self.last_levels = out.frame.feat.level
+            self.last_time = timestamp
+            if cfg.use_of or cfg.use_icp:
+                self.last_frame = out.frame
+            return self._track_frame(out.frame, timestamp, p_host,
+                                     staged=True)
         twc = np.eye(4)
         twc[:3, :4] = pkt[4:16].reshape(3, 4)
         trel = pkt[16:28].reshape(3, 4).astype(np.float64)
@@ -1243,6 +1370,11 @@ class SlamSystem:
             if self._need_new_keyframe(n_final, timestamp):
                 self._insert_keyframe(out.frame, timestamp, T.TrackResult(
                     out.rot, out.t, out.obs_mp, n2), n2)
+            # the global BA's micro-step: on a tracked fused frame, after
+            # its KF decision
+            if (self._gba is not None and self._gba.active
+                    and self._gba.step()):
+                self._finish_gba()
             return out.frame, twc
         if aux >= 2.0:
             # recovered in the step (the re-search or the relocalization):
@@ -1483,29 +1615,38 @@ class SlamSystem:
     def _insert_keyframe(self, frame: FrameData, timestamp: float,
                          res: T.TrackResult, n_inliers: int,
                          fused_kf: bool = False):
-        """A KF through the mapping step (the reference's fused KF step),
-        or its staged KF step until the IMU is initialized and, with
-        use_lidar or without local_ba_every_kf, for the KF of a tracked
-        frame (`fused_kf` False)."""
+        """A KF through the reference's fused KF step (one mapping step, no
+        host read), or its staged KF step until the IMU is initialized and,
+        with use_lidar or without local_ba_every_kf, for the KF of a tracked
+        frame (`fused_kf` False: the ICP-carried and lost frames' KFs take
+        the fused step)."""
         if ((self.imu is not None and not self.imu.initialized)
                 or ((self.cfg.use_lidar or not self.cfg.local_ba_every_kf)
                     and not fused_kf)
                 or self.cfg.sensor == "mono"):
             return self._insert_keyframe_staged(frame, timestamp, res,
                                                 n_inliers)
-        slot = self._free_kf_slot()
+        with self.timers.time("New_KF"):
+            self._insert_keyframe_fused(frame, timestamp, res, n_inliers)
+
+    def _insert_keyframe_fused(self, frame: FrameData, timestamp: float,
+                               res: T.TrackResult, n_inliers: int):
+        """The reference's fused KF step (its _insert_keyframe_fused): the
+        slot from the host mirror, the lazy inter-KF GICP (use_icp), the VI
+        window staged through pinned memory (with the IMU), one mapping
+        step, BA's correction of the KF folded into the tracked pose, the
+        mirror updated; the step's culled slot and, with loop closing, the
+        KF's place recognition are copied to the host without a wait and
+        applied `fused_lag` processed frames later (_drain_deferred).
+        Reads the device only when the mirror is dirty."""
+        slot = self._fused_kf_slot()
         if self.cfg.use_icp:
             self._register_kf_icp(slot, frame, res.rot, res.t,
                                   self._icp_prev(), lazy=True)
         vi = self._vi_window_for_kf(slot, timestamp) if self.imu else None
-        with self.timers.time("New_KF"):
-            # ends in the read of `culled`: includes the step's device work
-            ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
-                self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
-                res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg, vi=vi)
-            culled_i = int(culled)
-        if culled_i >= 0:
-            self._on_kf_culled(ms, culled_i)
+        ms, new_obs, masks, kf_rot, kf_t, culled, _ = LM.mapping_step(
+            self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
+            res.obs_mp, self.ref_kf, slot, self.tcfg, self.mcfg, vi=vi)
         self.ms = ms
         self.local_masks = masks
         # the tracked pose is the KF's pose before BA: fold BA's correction
@@ -1521,37 +1662,78 @@ class SlamSystem:
                                                    dr, dt)
         if self.cfg.record_reproj_err and self.imu is None:
             self.last_obs_mp = new_obs
+        if self.cfg.use_lidar:
+            self._insert_kf_cloud(slot, frame, kf_rot, kf_t, lazy=True)
+        self._kf_prev_h[slot] = self.ref_kf
         self.ref_kf = slot
         self.ref_kf_inliers = n_inliers
         self.frames_since_kf = 0
         self._last_kf_time = timestamp
+        self._vi_prior = None
         self._gen_counter += 1
         self._kf_gen[slot] = self._gen_counter
-        if self.imu is not None:
+        self._kf_valid_h[slot] = True
+        self._kf_map_h[slot] = self._active_map_h
+        if vi is not None:
             # the next frame tracks against the map-anchored KF state
-            self._vi_prior = None
             self._rederive_body()
-        if self.cfg.use_lidar:
-            self._insert_kf_cloud(slot, frame, kf_rot, kf_t, lazy=True)
+        lag = max(self.cfg.fused_lag, 1)
+        self._deferred.append(dict(culled=HostCopy(culled.reshape(1)),
+                                   countdown=lag))
         if self.loop_closer is None:
             self._db_insert_kf(slot)
             return
-        self.ms, found = self.loop_closer.on_keyframe(
-            self.ms, slot, kf_clouds=self._kf_clouds or None,
+        self._deferred.append(dict(
+            loop_scalars=self.loop_closer.begin_detect(self.ms, slot),
+            kf=slot, frame=self.n_frames, countdown=lag))
+
+    def _drain_deferred(self, force: bool = False):
+        """Apply the deferred KF results whose countdown ran out (every one
+        with `force`): a cull's bookkeeping (_on_kf_culled, the slot freed
+        in the mirror) and a loop detection's matured candidate
+        (_handle_loop_scalars). Called once per fused frame after its
+        outputs are adopted, and forced where the reference flushes its
+        pipeline: the staged entry, trajectory, map_stats, save_atlas,
+        save_session, shutdown."""
+        keep = []
+        for ent in self._deferred:
+            ent["countdown"] -= 1
+            if ent["countdown"] > 0 and not force:
+                keep.append(ent)
+                continue
+            if "culled" in ent:
+                culled = int(np.asarray(ent["culled"])[0])
+                if culled >= 0:
+                    self._on_kf_culled(culled)
+                    self._kf_valid_h[culled] = False
+            else:
+                self._handle_loop_scalars(ent)
+        self._deferred = keep
+
+    def _handle_loop_scalars(self, ent):
+        """A deferred loop detection: for a matured candidate, Sim3
+        verification and the correction (loop_closing.complete_candidate);
+        on a closed loop the reference KF's correction is carried onto the
+        current pose (the motion model dropped, the body re-derived), the
+        global BA restarted and the mirror resynced at the next KF."""
+        lc = self.loop_closer
+        best = lc.matured_candidate(np.asarray(ent["loop_scalars"]))
+        if best is None:
+            return
+        self.n_loop_matured += 1
+        r_old, t_old = self.ms.kf_rot[self.ref_kf], self.ms.kf_t[self.ref_kf]
+        self.ms, found = lc.complete_candidate(
+            self.ms, ent["kf"], best, kf_clouds=self._kf_clouds or None,
             inertial=self.imu is not None and self.imu.initialized)
         if not found:
             return
-        # the correction moved the map: carry the KF's correction onto the
-        # current pose, drop dead bindings, restart the global BA
-        self._carry_ref_correction(kf_rot, kf_t)
-        obs = self.ms.kf_obs_mp[slot]
-        self.last_obs_mp = torch.where(
-            (obs >= 0) & self.ms.mp_valid[torch.clamp_min(obs, 0).long()],
-            obs, M.NO_MP)
-        self.local_masks = None
+        self.loop_events.append((ent["frame"], self.n_frames))
+        self._mirror_dirty = True
+        self._carry_ref_correction(r_old, t_old)
         if self._gba is not None and self.cfg.loop.async_global_ba:
             self._gba.abort()
             self._gba.start(self.ms)
+        self.local_masks = None
 
     def _carry_ref_correction(self, r_ref_old, t_ref_old):
         """The map moved under the tracker: T_cur' = T_cur T_ref_old^-1
@@ -1573,11 +1755,12 @@ class SlamSystem:
 
     def _vi_window(self, slots, kw: int) -> LM.VIWindow:
         """A VI-BA window over `slots` (oldest first), end-padded to kw with
-        the out-of-range slot k_max; with use_icp its EdgeICP factors."""
+        the out-of-range slot k_max; with use_icp its EdgeICP factors. The
+        host arrays go to the device through pinned memory, unwaited."""
         imu = self.imu
         slots_p = list(slots) + [self.cfg.k_max] * (kw - len(slots))
         return LM.VIWindow(
-            slots=torch.tensor(slots_p, device=self.device),
+            slots=stage(np.asarray(slots_p, np.int64), self.device),
             slot_valid=torch.arange(kw, device=self.device) < len(slots),
             segs=imu.build_segments(slots_p), r_cb=imu.r_cb, t_cb=imu.t_cb,
             walk_info=imu.walk_info_dev,
@@ -1628,11 +1811,13 @@ class SlamSystem:
         tracking goes on from the KF's pose and its live bindings, without
         the motion model."""
         imu = self.imu
+        self._mirror_dirty = True
         slot = self._free_kf_slot()
         with self.timers.time("New_KF"):
             self.ms, _ = T.create_keyframe(
                 self.ms, frame, res.rot, res.t, self._t_rel(timestamp),
                 res.obs_mp, self.ref_kf, slot, self.tcfg)
+        self._kf_prev_h[slot] = self.ref_kf
         self.ref_kf = slot
         self.ref_kf_inliers = n_inliers
         self.frames_since_kf = 0
@@ -1677,7 +1862,7 @@ class SlamSystem:
         self.ms, culled = LM.keyframe_culling(self.ms, slot)
         culled_i = int(culled)
         if culled_i >= 0:
-            self._on_kf_culled(self.ms, culled_i)
+            self._on_kf_culled(culled_i)
         if self.cfg.use_lidar:
             self._insert_kf_cloud(slot, frame, self.ms.kf_rot[slot],
                                   self.ms.kf_t[slot], lazy=False)
@@ -1817,7 +2002,8 @@ class SlamSystem:
         icp = VIBA.RelPoseFactors(rot=torch.stack(rots), t=torch.stack(ts),
                                   info=torch.stack(infos))
         self._edge_icp_rows = self._edge_icp_rows + torch.stack([
-            torch.tensor(n_meas, device=dev), (icp.info > 0).sum()])
+            torch.full((), n_meas, dtype=torch.long, device=dev),
+            (icp.info > 0).sum()])
         return icp
 
     def _insert_kf_cloud(self, slot: int, frame: FrameData, kf_rot, kf_t,
@@ -1885,7 +2071,7 @@ class SlamSystem:
                 trel[:, 3] = s * trel[:, 3]
                 self._traj[i] = (e[0], m, e[2], e[3], trel)
         for k, (prev, pgen, tcp) in list(self._culled_rel.items()):
-            tcp = tcp.copy()
+            tcp = np.asarray(tcp, np.float64).copy()
             tcp[:, 3] = s * tcp[:, 3]
             self._culled_rel[k] = (prev, pgen, tcp)
 
@@ -1898,25 +2084,36 @@ class SlamSystem:
             self._carry_ref_correction(r_old, t_old)
         self.local_masks = None
 
-    def _on_kf_culled(self, ms: M.MapState, culled: int):
-        """Snapshot T_culled<-parent for trajectory rebasing (mTcp), and
-        drop the KF from the BoW database."""
+    def _on_kf_culled(self, culled: int):
+        """The bookkeeping of a culled KF, from the host mirror as the
+        reference keeps it: T_culled<-parent for trajectory rebasing (mTcp)
+        computed on the device from the map as it stands and copied to the
+        host without a wait, the culled KF's children re-parented in the
+        mirror, its BoW entry erased, its IMU segment merged into its
+        successor's. The mirror is built at the first cull if no KF step
+        has built it yet (and then kept, as the reference keeps it)."""
+        gen = self._kf_gen.get(culled)
+        if gen is not None:
+            # built once, as the reference builds it: a staged KF step does
+            # not mark its slot valid there, so on a purely staged run a
+            # parent inserted after the first cull gets no snapshot and its
+            # children export as tracked (ROADMAP.md Queue 3)
+            if self._kf_valid_h is None:
+                self._host_slot_mirror()
+            prev = self._kf_prev_h.get(culled, -1)
+            if 0 <= prev < self.ms.k_max and self._kf_valid_h[prev]:
+                self._culled_rel[(culled, gen)] = (
+                    prev, self._kf_gen.get(prev),
+                    HostCopy(_culled_rel_pose(self.ms, culled, prev)))
+        pv = self._kf_prev_h.pop(culled, -1)
+        for k, p in self._kf_prev_h.items():
+            if p == culled:
+                self._kf_prev_h[k] = pv
         if self.loop_closer is not None:
             self.loop_closer.db = DBD.erase_keyframe(self.loop_closer.db,
                                                      culled)
         elif self._reloc_db is not None:
             self._reloc_db = DBD.erase_keyframe(self._reloc_db, culled)
-        gen = self._kf_gen.get(culled)
-        prev = int(ms.kf_prev[culled])
-        if gen is not None and 0 <= prev < ms.k_max and bool(
-                ms.kf_valid[prev]):
-            rc, tc = ms.kf_rot[culled], ms.kf_t[culled]
-            rp, tp = ms.kf_rot[prev], ms.kf_t[prev]
-            r_cp = rc @ rp.T
-            t_cp = tc - r_cp @ tp
-            rel = torch.cat([r_cp, t_cp[:, None]], 1).cpu().numpy()
-            self._culled_rel[(culled, gen)] = (prev, self._kf_gen.get(prev),
-                                               rel.astype(np.float64))
         imu = self.imu
         if imu is not None and culled in imu.kf_preints:
             # the culled KF's segment is merged into its successor's
@@ -1933,6 +2130,7 @@ class SlamSystem:
     def _reset_or_new_map(self):
         """Atlas recovery: start a new map when the active one holds enough
         KFs (Tracking::CreateMapInAtlas), then reinitialize."""
+        self._mirror_dirty = True
         ms = self.ms
         n_kfs = int((ms.kf_valid & (ms.kf_map_id == ms.active_map)).sum())
         if n_kfs >= self.cfg.min_kfs_for_new_map:
@@ -1965,6 +2163,13 @@ class SlamSystem:
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _culled_rel_pose(ms: M.MapState, culled: int, prev: int) -> torch.Tensor:
+    """T_culled<-prev as a [3, 4] tensor on the map's device."""
+    r_cp = ms.kf_rot[culled] @ ms.kf_rot[prev].T
+    t_cp = ms.kf_t[culled] - r_cp @ ms.kf_t[prev]
+    return torch.cat([r_cp, t_cp[:, None]], 1)
 
 
 def _twc(r_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:

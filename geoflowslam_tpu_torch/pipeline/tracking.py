@@ -258,7 +258,7 @@ def create_keyframe(ms: M.MapState, frame: FrameData, rot, t, time: float,
     _, order = topk_stable(order_key, min(cfg.max_new_mp_per_kf, n),
                            largest=False)
     sel = torch.zeros((n,), dtype=torch.bool, device=dev)
-    sel[order] = True
+    sel.index_fill_(0, order, True)
     make = make & sel
 
     rot_wc = rot.T

@@ -151,9 +151,35 @@ def free_mp_slots(ms: MapState, count: int, use_mask: torch.Tensor):
 # Keyframe and map-point insertion
 # ---------------------------------------------------------------------------
 
-def _set_row(arr: torch.Tensor, slot: int, val) -> torch.Tensor:
+def slot_index(slot, device) -> torch.Tensor:
+    """A slot (an int, or a 0-d or one-element tensor) as a one-element
+    int64 index tensor on `device`; a tensor slot is never read on the
+    host (indexing with a 0-d tensor would read it)."""
+    if torch.is_tensor(slot):
+        return slot.reshape(1).long()
+    return torch.full((1,), int(slot), dtype=torch.long, device=device)
+
+
+def take_row(arr: torch.Tensor, slot) -> torch.Tensor:
+    """arr[slot] without a host read of a tensor slot."""
+    if torch.is_tensor(slot):
+        return arr.index_select(0, slot.reshape(1).long())[0]
+    return arr[slot]
+
+
+def _set_row(arr: torch.Tensor, slot, val) -> torch.Tensor:
+    """A copy of arr with row `slot` (an int or a slot tensor, not read on
+    the host) set to `val` (a tensor or a Python scalar)."""
     out = arr.clone()
-    out[slot] = val
+    scalar = not torch.is_tensor(val)
+    if torch.is_tensor(slot):
+        v = (torch.full((), val, dtype=arr.dtype, device=arr.device)
+             if scalar else val.to(arr.dtype))
+        out.index_put_((slot_index(slot, arr.device),), v)
+    elif scalar:
+        out[slot].fill_(val)
+    else:
+        out[slot] = val
     return out
 
 
@@ -183,9 +209,10 @@ def add_map_points(ms: MapState, slots, pos, desc, normal, min_dist, max_dist,
                    first_kf: int, valid_new) -> MapState:
     """Register new map points at `slots` [P] (unique); valid_new masks rows."""
     def upd(arr, vals):
-        vals = torch.broadcast_to(torch.as_tensor(vals, dtype=arr.dtype,
-                                                  device=arr.device),
-                                  (slots.shape[0],) + tuple(arr.shape[1:]))
+        vals = (vals.to(arr.dtype) if torch.is_tensor(vals) else
+                torch.full((), vals, dtype=arr.dtype, device=arr.device))
+        vals = torch.broadcast_to(vals, (slots.shape[0],)
+                                  + tuple(arr.shape[1:]))
         keep = valid_new.reshape((-1,) + (1,) * (arr.dim() - 1))
         out = arr.clone()
         out[slots] = torch.where(keep, vals, arr[slots])
@@ -220,7 +247,7 @@ def observation_incidence(ms: MapState) -> torch.Tensor:
     safe = torch.where(valid, obs, m)
     inc = torch.zeros((k, m + 1), dtype=torch.float32, device=obs.device)
     rows = torch.arange(k, device=obs.device)[:, None].expand(k, n)
-    inc[rows, safe] = 1.0
+    inc[rows, safe] = torch.ones((), device=obs.device)
     return inc[:, :m] * ms.mp_valid[None, :]
 
 
@@ -244,11 +271,12 @@ def local_window(ms: MapState, center_kf: int, k1: int = 10,
     local-MP indices, padded with the first unset index)."""
     inc = observation_incidence(ms) if incidence is None else incidence
     cov = covisibility(ms, incidence=inc)
-    row = cov[center_kf] * ms.kf_valid * (ms.kf_map_id == ms.active_map)
+    row = (take_row(cov, center_kf) * ms.kf_valid
+           * (ms.kf_map_id == ms.active_map))
     top_v, top = topk_stable(row, min(k1, ms.k_max))
     kf_mask = torch.zeros((ms.k_max,), dtype=torch.bool, device=row.device)
     kf_mask[top] = top_v > 0
-    kf_mask[center_kf] = True
+    kf_mask.index_fill_(0, slot_index(center_kf, row.device), True)
     mp_mask = (kf_mask.float() @ inc) > 0
     mp_mask = mp_mask & ms.mp_valid
     nc = min(n_cand, ms.m_max)
@@ -287,7 +315,8 @@ def erase_keyframe(ms: MapState, slot) -> MapState:
         kf_valid=_set_row(ms.kf_valid, slot, False),
         kf_obs_mp=_set_row(ms.kf_obs_mp, slot, NO_MP),
         kf_kp_valid=_set_row(ms.kf_kp_valid, slot, False),
-        kf_prev=torch.where(ms.kf_prev == slot, ms.kf_prev[slot], ms.kf_prev),
+        kf_prev=torch.where(ms.kf_prev == slot, take_row(ms.kf_prev, slot),
+                            ms.kf_prev),
     )
 
 

@@ -281,11 +281,14 @@ def load_session(path: str, slam) -> dict:
     slam._last_kf_time = float(s["last_kf_time"])
     slam._gen_counter = int(s["gen_counter"])
     slam._kf_gen = {int(k): int(v) for k, v in s["kf_gen"].items()}
+    slam._kf_prev_h = {int(k): int(v) for k, v in s["kf_prev"].items()}
     slam._last_kf_slot = s.get("last_kf_slot")
     # the transient state restarts empty
     slam._traj = []
     slam._lost_stamps = set()
     slam._culled_rel = {}
+    slam._deferred = []
+    slam._mirror_dirty = True
     slam.local_masks = None
     slam.last_frame = None
     slam._kf_clouds.clear()

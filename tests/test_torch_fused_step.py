@@ -40,8 +40,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from geoflowslam_tpu.imu import preintegration as JPRE
 from geoflowslam_tpu.io.synthetic import (Camera, SyntheticSequence,
@@ -63,6 +61,7 @@ from geoflowslam_tpu_torch import convert
 from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.pipeline import fused as TFU
 from geoflowslam_tpu_torch.pipeline import reloc as TR
+from geoflowslam_tpu_torch.utils.sync_audit import audit
 from tests.test_torch_fused_recovery import _j_sample_sets
 
 torch.set_num_threads(2)
@@ -211,54 +210,14 @@ def _of_gumbel(seq_no, n_kp):
                  for k in (k1, k2))
 
 
-# -- the sync audit -----------------------------------------------------------
-
-_SYNC_ATEN = {"_local_scalar_dense", "nonzero", "unique", "_unique",
-              "_unique2", "unique_dim", "unique_consecutive", "masked_select",
-              "_linalg_eigh", "linalg_eigh", "linalg_eigvalsh",
-              "_linalg_svd", "linalg_inv", "linalg_solve", "linalg_cholesky",
-              "repeat_interleave", "bincount", "histc", "lift_fresh",
-              "lift_fresh_copy", "equal", "is_nonzero", "masked_scatter"}
-_SYNC_METHODS = {"item", "tolist", "numpy", "cpu", "__bool__", "__int__",
-                 "__float__", "__index__", "tensor", "as_tensor"}
-
-
-class _Audit(TorchDispatchMode):
-    """Counts the operations that synchronise with the host on CUDA."""
-
-    def __init__(self, hits):
-        super().__init__()
-        self.hits = hits
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func._schema.name.split("::")[-1]
-        if name in _SYNC_ATEN:
-            self.hits.append(name)
-        if name in ("index", "index_put", "index_put_"):
-            if any(i is not None and i.dtype == torch.bool for i in args[1]):
-                self.hits.append(name + " (bool mask)")
-        return func(*args, **(kwargs or {}))
-
-
-class _AuditPy(TorchFunctionMode):
-    def __init__(self, hits):
-        super().__init__()
-        self.hits = hits
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        name = getattr(func, "__name__", "")
-        if name in _SYNC_METHODS:
-            self.hits.append(name)
-        return func(*args, **(kwargs or {}))
-
+# -- the sync audit (geoflowslam_tpu_torch/utils/sync_audit.py) --------------
 
 def _port_step(args, kw):
     """The port's frame_step on (args, kw) under the audit: (out, hits).
     A first run, not audited, fills the per-device constant caches (the
     Jacobi schedules, gravity), as the card's warm-up does."""
     TFU.frame_step(*args, **kw)
-    hits = []
-    with _AuditPy(hits), _Audit(hits):
+    with audit() as hits:
         out = TFU.frame_step(*args, **kw)
     return out, hits
 

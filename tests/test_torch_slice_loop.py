@@ -11,13 +11,14 @@ with the same number of maps, and the port's poses on tracked frames stay
 within max(2 cm, the reference's own ATE) of the reference's.
 
 Both run their staged path (record_reproj_err=True keeps each off its
-fused recovery; the reference with pkt_max_pending=0): loop detection at
-the KF and relocalization on every lost frame.
-Its fused path lags loop detection by fused_lag frames and exports the
-poses of its in-dispatch recovery frames even when they are metres off, so
-it is no yardstick here. The staged path drops the motion model after each
-local BA, which the port (like the fused path) keeps, so the two are held
-to each other by outcomes and a pose bound, not frame by frame. Its loop
+fused recovery; the reference with pkt_max_pending=0): relocalization on
+every lost frame, and each KF's loop detection, deferred by its fused KF
+step, applied when the next staged frame drains it. The fused path, which
+applies it `fused_lag` frames later, is held to JAX's frame by frame in
+tests/test_torch_fused_kf_merge.py. The staged path drops the motion
+model after each local BA, which the port (like the fused path) keeps, so
+the two are held to each other by outcomes and a pose bound, not frame by
+frame. Its loop
 closer is instrumented from the outside to record the inputs of every
 detect step, of the verified candidate and of the global BA it starts,
 which the port's detect_step, verify_sim3 (fed the reference's RANSAC
