@@ -102,6 +102,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      exactly once per loop check and relocalization attempt; frames and ms
      per imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by
      window width, host syncs a frame (CUDA sync debugging over 30 frames);
+     then hot_path, bench.py's second line on the port (check_hot_path):
+     pipeline/tracking.fused_track_step from the façade's last state, one
+     call held bitwise to its three calls, the fused K1 once and K2 as
+     often as the three calls, ms a call and FPS over HOT_CALLS calls,
+     and slam.timers.summary_lines();
  13. g1: GeoFlow's G1 combination, the default SystemConfig with use_of,
      use_icp (n_of_slots 256), use_lidar and use_odom, through run_path
      (G1_FRAMES frames of the of_icp path's room at 10 fps), the trajectory's
@@ -197,7 +202,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
  23. quickstart: tools/run_synthetic.main --mode rgbd_inertial --frames
      100 (README's first command, 640x480) and tools/evaluate_ate.main on
      what it wrote: OK, ATE < 5 cm, the two ATEs equal, the fused K1 once a
-     frame.
+     frame; then tools/calibration_recorder.record_synthetic on the card
+     (check_calibration: 2 s at 10 fps and 200 Hz, the EuRoC tree and
+     its data.csv);
  24. fused_step: pipeline/fused.frame_step on the card at bench.py's
      configuration with ICP, lidar and 256 OF slots (fused_step_config):
      a map tracked over FUSED_FRAMES frames, then the next frame in seven
@@ -207,6 +214,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      kf and prior, the recovery recovered, the kf poses within 2 cm and
      1 deg of the façade's own step on the frame; host and device ms of
      each (see phase_fused_step).
+ 25. matrix: tools/run_hardmode_matrix.py for the rgbd_of_icp cell at 60
+     frames (run_hardmode.py in a subprocess on the card) and
+     tools/assemble_hardmode_matrix.py over it, into a temporary
+     directory: the table and matrix.json written by both, the cell's row
+     without an error, OK, KFs, finite ATE and RPE.
 The paths rgbd, of_icp, g1 (their last PATH_SYNC frames), hard
 (HARD_SYNC), inertial (SYNC_WINDOW) and inertial_geoflow (GEOFLOW_SYNC)
 count host syncs inside the entry points with CUDA sync debugging, apart
@@ -225,7 +237,7 @@ restored counts equal the saved ones, OK with the IMU initialized, the
 final position within 5 cm of the unbroken run's and the KF counts within
 2 (the JAX package's test_persistence bounds); it prints the file's size,
 the save and load seconds and the largest position gap.
-Phases 1-6c run in this process. The path phases 7-24 then run in three
+Phases 1-6c run in this process. The path phases 7-25 then run in three
 processes side by side on the same card (PATH_GROUPS; each a group of
 paths one after another, its output printed when it ends), and last, with
 the card to itself again, K4 is held to plain and timed at the two shapes
@@ -246,7 +258,8 @@ its operations over 67 TFLOP/s (K4's distance product: over the tensor
 cores' 1,979 TOP/s), worked out from this run's inputs. No
 PyTorch call computes any of these functions, so `library_ms` is null. The
 line before the last is a JSON summary of the kernels (`launches` summed
-over the eighteen paths and nothing else, and K4's `path_shapes`) with
+over the eighteen paths and the hot-path call and nothing else, and K4's
+`path_shapes`) with
 `launch_floor_ms` beside it; the
 last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero before printing any result.
@@ -2165,6 +2178,104 @@ def phase_quickstart(summary):
             raise AssertionError(f"run_synthetic wrote no {name}")
     _count(summary, "quickstart", launches, QUICK_FRAMES,
            {"gated_hamming_search": None})
+    check_calibration()
+
+
+CALIB_SECONDS, CALIB_FPS, CALIB_IMU_RATE = 2.0, 10.0, 200.0
+
+
+def check_calibration():
+    """tools/calibration_recorder.record_synthetic on the card: CALIB_SECONDS
+    of the static rig at CALIB_FPS with CALIB_IMU_RATE IMU samples into a
+    temporary directory. Gates: the EuRoC tree (one PNG a frame, their
+    stamps in cam0/times.txt), imu0/data.csv parsing to a row a sample of
+    seven finite columns, gravity on the accelerometer's mean."""
+    import os
+    import tempfile
+    from geoflowslam_tpu_torch.tools import calibration_recorder as CR
+    out = tempfile.mkdtemp(prefix="calibration_")
+    try:
+        t0 = time.perf_counter()
+        CR.record_synthetic(out, CALIB_SECONDS, CALIB_FPS, CALIB_IMU_RATE,
+                            device="cuda")
+        wall = time.perf_counter() - t0
+        pngs = os.listdir(os.path.join(out, "cam0", "data"))
+        with open(os.path.join(out, "cam0", "times.txt")) as f:
+            stamps = f.read().split()
+        rows = np.loadtxt(os.path.join(out, "imu0", "data.csv"),
+                          delimiter=",", skiprows=1)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    n_frames = int(CALIB_SECONDS * CALIB_FPS)
+    n_imu = int(CALIB_SECONDS * CALIB_IMU_RATE)
+    g = rows[:, 4:7].mean(axis=0) if rows.ndim == 2 else None
+    print(f"[calibration] recorded {len(pngs)} frames and {len(rows)} IMU "
+          f"samples on the card in {wall:.2f} s; mean acc {g}")
+    if (len(pngs) != n_frames or sorted(pngs) != sorted(
+            f"{s}.png" for s in stamps)):
+        raise AssertionError(f"calibration: {len(pngs)} PNGs, {stamps}")
+    if rows.shape != (n_imu, 7) or not np.all(np.isfinite(rows)):
+        raise AssertionError(f"calibration: data.csv {rows.shape}")
+    if not abs(g[2] - 9.81) < 0.05:
+        raise AssertionError(f"calibration: mean acc {g}")
+
+
+MATRIX_CELL, MATRIX_FRAMES = "rgbd_of_icp", 60
+
+
+def phase_matrix(summary):
+    """tools/run_hardmode_matrix.py for one cell (MATRIX_CELL, MATRIX_FRAMES
+    frames of the hard sequence, run_hardmode.py in a subprocess on the
+    card) into a temporary directory, then
+    tools/assemble_hardmode_matrix.py over it. Gates: both exit 0,
+    matrix.json and matrix.md written by each, the cell without an error,
+    its state OK, its KF count positive and its ATE and RPE finite, the
+    card named in the row. Launches no kernel in this process."""
+    import os
+    import tempfile
+    out = tempfile.mkdtemp(prefix="matrix_")
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "geoflowslam_tpu_torch", "tools")
+    try:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable,
+                        os.path.join(tools, "run_hardmode_matrix.py"),
+                        "--cells", MATRIX_CELL, "--frames",
+                        str(MATRIX_FRAMES), "--out", out], check=True)
+        wall = time.perf_counter() - t0
+        rows = []
+        for tool in ("run_hardmode_matrix", "assemble_hardmode_matrix"):
+            if tool == "assemble_hardmode_matrix":
+                os.remove(os.path.join(out, "matrix.json"))
+                os.remove(os.path.join(out, "matrix.md"))
+                subprocess.run([sys.executable,
+                                os.path.join(tools, f"{tool}.py"), "--out",
+                                out], check=True)
+            with open(os.path.join(out, "matrix.json")) as f:
+                rows.append(json.load(f))
+            with open(os.path.join(out, "matrix.md")) as f:
+                table = f.read()
+            print(f"[matrix] {tool}.py wrote:\n{table}", end="")
+        with open(os.path.join(out, f"{MATRIX_CELL}.log")) as f:
+            log_tail = f.read().splitlines()[-3:]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"[matrix] {MATRIX_CELL} at {MATRIX_FRAMES} frames in {wall:.1f} "
+          f"s; its log ends {log_tail}")
+    for cells in rows:
+        if len(cells) != 1:
+            raise AssertionError(f"matrix: {cells}")
+        d = cells[0]
+        if "error" in d or d["tag"] != MATRIX_CELL:
+            raise AssertionError(f"matrix: {d}")
+        m = d["map"]
+        if (m["state"] != "OK" or not m["n_kfs"] > 0
+                or not np.isfinite([d["ate_rmse_m"], d["rpe_trans_m"]]).all()
+                or d.get("device", "cpu") == "cpu"):
+            raise AssertionError(f"matrix: {d}")
+    print(f"[matrix] row: ATE {d['ate_rmse_m'] * 100:.3f} cm, RPE "
+          f"{d['rpe_trans_m'] * 100:.3f} cm, {m}, {d['fps']:.2f} FPS, "
+          f"{d['device']}")
 
 
 def phase_hard(summary, voc):
@@ -2676,7 +2787,8 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
     per loop check and relocalization attempt. Prints the frames and ms per
     imu_mode (median, p90), the VI accepted share, VI-BA ms per KF by window
     width, and the host syncs a frame over SYNC_WINDOW (CUDA sync
-    debugging; those frames are left out of the times)."""
+    debugging; those frames are left out of the times). Then the session
+    check and bench.py's hot path on the final state (check_hot_path)."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
     session = dict(at=min(SESSION_AT, n_frames - 1),
@@ -2692,6 +2804,83 @@ def phase_inertial(summary, voc, n_frames: int = INERTIAL_FRAMES):
         _check_session("inertial", slam, voc, session)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    check_hot_path(summary, slam, session["frames"][0][-1])
+
+
+HOT_CALLS = 50   # bench.py's timed hot-path calls (n_hot, bench.py:280)
+
+
+def check_hot_path(summary, slam, buf):
+    """bench.py's second line (bench.py:266-289) on the port: from the
+    façade's state after its last frame (ms, last_obs_mp, cur_rot/cur_t,
+    ref_kf and its local window) and that frame's m12 buffer `buf`, one
+    pipeline/tracking.fused_track_step call held equal to its three calls
+    (build_frame, track_with_motion_model with the last octaves at 0,
+    track_local_map on the input map): obs_mp identical, pose and
+    n_inliers bitwise; the call launches the fused K1 exactly once and K2
+    as often as the three calls, nothing else (its counts join the
+    summary as path `hot_path`). The window branch (local_masks=None)
+    tracks too. Then HOT_CALLS calls back to back after one warm call,
+    timed to a device sync: ms a call and FPS, with the card's name and
+    power limit; and the façade's StageTimers.summary_lines()."""
+    from geoflowslam_tpu_torch.pipeline import tracking as TT
+    from geoflowslam_tpu_torch.state import map_state as M
+    dev = slam.device
+    tcfg, fcfg = slam.tcfg, slam.cfg.frame
+    ms, ref = slam.ms, slam.ref_kf
+    masks = M.local_window(ms, ref, tcfg.local_window, tcfg.lm_max_candidates)
+    gray = torch.from_numpy(buf).to(dev)
+    depth = torch.zeros((1, 1), device=dev)
+    args = (gray, depth, ms, slam.last_obs_mp, slam.cur_rot, slam.cur_t, ref,
+            tcfg, fcfg)
+
+    kernels.reset_launch_counts()
+    _, one, _ = TT.fused_track_step(*args, local_masks=masks)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    frame = build_frame(gray, depth, fcfg, tcfg.fx, tcfg.fy, tcfg.cx, tcfg.cy)
+    zeros = torch.zeros((frame.feat.capacity,), dtype=torch.int32, device=dev)
+    mm = TT.track_with_motion_model(ms, frame, slam.last_obs_mp, slam.cur_rot,
+                                    slam.cur_t, tcfg, zeros)
+    _, three = TT.track_local_map(ms, frame, mm.obs_mp, mm.rot, mm.t, tcfg,
+                                  masks)
+    torch.cuda.synchronize()
+    launches_three = dict(kernels.launch_counts)
+    n_one, n_three = int(one.n_inliers), int(three.n_inliers)
+    same = (torch.equal(one.obs_mp, three.obs_mp)
+            and torch.equal(one.rot, three.rot)
+            and torch.equal(one.t, three.t) and n_one == n_three)
+    print(f"[hot_path] one fused_track_step against its three calls: "
+          f"n_inliers {n_one} / {n_three}, obs_mp, rot and t "
+          f"{'identical' if same else 'DIFFERENT'}; launches a call "
+          f"{launches}, the three calls {launches_three}")
+    if not same or n_one < 50:
+        raise AssertionError("hot_path: the fused call differs from its "
+                             "three calls (or tracked < 50 inliers)")
+    _count(summary, "hot_path", launches, 1, {
+        "gated_hamming_search": launches_three["gated_hamming_search"]})
+    if launches_three["gated_hamming_search"] < 2:
+        raise AssertionError(f"hot_path: K2 {launches_three}")
+    _, win, _ = TT.fused_track_step(*args)
+    n_win = int(win.n_inliers)
+    if n_win < 50 or not bool(torch.isfinite(win.t).all()):
+        raise AssertionError(f"hot_path: the window branch tracked {n_win}")
+
+    TT.fused_track_step(*args, local_masks=masks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOT_CALLS):
+        TT.fused_track_step(*args, local_masks=masks)
+    torch.cuda.synchronize()
+    ms_call = (time.perf_counter() - t0) * 1000.0 / HOT_CALLS
+    print(f"[hot_path] fused_track_step at bench.py's operating point "
+          f"(640x480 m12, 1000 features, LoopConfig()): {HOT_CALLS} calls, "
+          f"{ms_call:.3f} ms a call, {1000.0 / ms_call:.2f} FPS on "
+          f"{HM._card()}; the window branch {n_win} inliers")
+    print("[hot_path] slam.timers.summary_lines():")
+    for line in slam.timers.summary_lines():
+        print("[hot_path]   " + line)
 
 
 def _check_session(tag, slam, voc, session):
@@ -3025,7 +3214,8 @@ def _check_edge_icp(prob, args):
 # another). Each group is about a third of the work (hard, then the other
 # vocabulary paths and the short RGB-D ones; inertial, the monocular
 # paths and the dataset path, which joined the group with the least time;
-# inertial_geoflow and the stereo paths and g1). The kernels are
+# inertial_geoflow and the stereo paths and g1, and the matrix tool's one
+# cell, which joined it as the group with the least time). The kernels are
 # timed before the paths start, and the monocular path's K4 launches after
 # they end, with the card to themselves.
 PATH_GROUPS = (("hard", "merge", "merge_mesh", "of_icp", "rgbd", "reloc",
@@ -3033,7 +3223,7 @@ PATH_GROUPS = (("hard", "merge", "merge_mesh", "of_icp", "rgbd", "reloc",
                ("inertial", "mono_inertial", "mono", "dataset",
                 "quickstart"),
                ("inertial_geoflow", "stereo_inertial", "g1",
-                "stereo_fisheye", "mono_geoflow", "mesh_gba"))
+                "stereo_fisheye", "mono_geoflow", "mesh_gba", "matrix"))
 VOCAB_PATHS = ("reloc", "merge", "merge_mesh", "hard", "inertial",
                "inertial_geoflow", "fused_step")
 PATH_THREADS = 2     # torch's CPU threads in each path process

@@ -10,6 +10,8 @@
 * `track_local_map`         <- TrackLocalMap + SearchLocalPoints: covisible
   window candidates, frustum gates, projection search, pose-only GN, the
   found/visible counters.
+* `fused_track_step`        <- the JAX package's one-dispatch hot path
+  (bench.py's second line): build_frame + motion model + local map.
 * `create_keyframe`         <- CreateNewKeyFrame, RGB-D close points.
 * `mean_reproj_error`       <- the per-frame mFrame2FrameReprojErr /
   mFrame2MapReprojErr bookkeeping.
@@ -23,12 +25,12 @@ from typing import NamedTuple
 
 import torch
 
-from geoflowslam_tpu_torch.config import TH_HIGH, TrackConfig
+from geoflowslam_tpu_torch.config import TH_HIGH, FrameConfig, TrackConfig
 from geoflowslam_tpu_torch.ops import matching
 from geoflowslam_tpu_torch.ops.indexing import scatter_set, topk_stable
 from geoflowslam_tpu_torch.solvers import pose_opt
 from geoflowslam_tpu_torch.state import map_state as M
-from geoflowslam_tpu_torch.state.frame import FrameData
+from geoflowslam_tpu_torch.state.frame import FrameData, build_frame
 
 
 class TrackResult(NamedTuple):
@@ -169,15 +171,25 @@ def track_reference_keyframe(ms: M.MapState, frame: FrameData,
 
 
 def track_local_map(ms: M.MapState, frame: FrameData, obs_mp: torch.Tensor,
-                    rot, t, cfg: TrackConfig, local_masks):
+                    rot, t, cfg: TrackConfig, local_masks=None, ref_kf=None):
     """Search the local window's map points not yet matched, then pose-only
     GN over all matches, and update the visible/found counters.
-    `local_masks` = (kf_mask, mp_mask, cand_idx) from M.local_window.
+    `local_masks` = (kf_mask, mp_mask, cand_idx) from M.local_window; when
+    it is None the window of `ref_kf` (an int or a slot tensor) is computed
+    here and its candidates are not gated by the window's mp_mask, as the
+    JAX package's track_local_map does without masks.
     Returns (ms, TrackResult)."""
     feat = frame.feat
     dev = feat.uv.device
-    _, mp_mask, cand_idx = local_masks
-    cand_valid = ms.mp_valid[cand_idx] & mp_mask[cand_idx]
+    if local_masks is None:
+        if ref_kf is None:
+            raise ValueError("track_local_map needs local_masks or ref_kf")
+        _, _, cand_idx = M.local_window(ms, ref_kf, cfg.local_window,
+                                        cfg.lm_max_candidates)
+        cand_valid = ms.mp_valid[cand_idx]
+    else:
+        _, mp_mask, cand_idx = local_masks
+        cand_valid = ms.mp_valid[cand_idx] & mp_mask[cand_idx]
     pos_c = ms.mp_pos[cand_idx]
     uv_proj, _, in_img = _project(rot, t, pos_c, cfg)
     already = torch.zeros((ms.m_max,), dtype=torch.bool, device=dev)
@@ -226,6 +238,25 @@ def track_local_map(ms: M.MapState, frame: FrameData, obs_mp: torch.Tensor,
     ms = ms._replace(mp_visible=ms.mp_visible + visible_add + found_add,
                      mp_found=ms.mp_found + found_add)
     return ms, TrackResult(rot2, t2, final_obs, n_inl)
+
+
+def fused_track_step(gray: torch.Tensor, depth: torch.Tensor | None,
+                     ms: M.MapState, last_obs_mp: torch.Tensor, pred_rot,
+                     pred_t, ref_kf, cfg: TrackConfig, fcfg: FrameConfig,
+                     local_masks=None):
+    """The per-frame visual hot path in one call: build_frame (a 1-D uint8
+    `gray` is an m12 buffer and `depth` is ignored), track_with_motion_model
+    at the predicted pose with the last frame's octaves taken as 0, then
+    track_local_map on the input `ms` (`local_masks` as there, the window of
+    `ref_kf` when None). No host read. Returns (frame, TrackResult, ms)."""
+    frame = build_frame(gray, depth, fcfg, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+    last_levels = torch.zeros((frame.feat.capacity,), dtype=torch.int32,
+                              device=frame.feat.uv.device)
+    res = track_with_motion_model(ms, frame, last_obs_mp, pred_rot, pred_t,
+                                  cfg, last_levels)
+    ms2, res2 = track_local_map(ms, frame, res.obs_mp, res.rot, res.t, cfg,
+                                local_masks, ref_kf=ref_kf)
+    return frame, res2, ms2
 
 
 def mean_reproj_error(ms: M.MapState, frame: FrameData, obs_mp, rot, t,

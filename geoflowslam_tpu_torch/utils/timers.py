@@ -4,9 +4,11 @@ The façade fills `Track_total` around each frame, `New_KF` around a
 keyframe's mapping step and `LBA` around the staged KF step's local BA or
 VI-BA. Each sample is host wall time in milliseconds; a stage that ends in
 a read from the device (the mapping step does) includes the device work
-queued before that read. `write_all` writes the reference's REGISTER_TIMES
-files (ExecTimeMean.txt, LocalMapTimeStats.txt, LBA_Stats.txt,
-TrackTimeCost.txt, SessionInfo.txt) in the JAX package's layout.
+queued before that read. `summary_lines` gives the per-stage means,
+costliest first, in the JAX package's format; `write_all` writes the
+reference's REGISTER_TIMES files (ExecTimeMean.txt, LocalMapTimeStats.txt,
+LBA_Stats.txt, TrackTimeCost.txt, SessionInfo.txt) in the JAX package's
+layout.
 """
 from __future__ import annotations
 
@@ -46,6 +48,13 @@ class StageTimers:
                       "min": float(a.min()), "max": float(a.max()),
                       "n": len(v)}
         return out
+
+    def summary_lines(self) -> List[str]:
+        """Per-stage means, costliest first (ties in insertion order), as
+        `"<stage>: <mean> ms (n=<count>)"` lines."""
+        s = self.summary()
+        return [f"{k}: {v['mean']:.2f} ms (n={v['n']})"
+                for k, v in sorted(s.items(), key=lambda kv: -kv[1]["mean"])]
 
     # -- reference-format outputs ------------------------------------------
 

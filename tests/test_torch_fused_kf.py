@@ -65,6 +65,7 @@ from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.solvers import inertial_ba as VIBA
 from geoflowslam_tpu_torch.utils.sync_audit import audit
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -98,7 +99,14 @@ def _frame(seq, t):
 
 
 @pytest.fixture(scope="module")
-def scene():
+def scene(tmp_path_factory):
+    """The rendered frames and the vocabulary, once per session for every
+    xdist worker (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory, "test_torch_fused_kf.scene",
+                         _scene)
+
+
+def _scene():
     cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H)
     seq = SyntheticSequence(SyntheticWorld(cam), fps=FPS)
     orb = C.OrbConfig(n_features=300, n_levels=4, height=H, width=W)
@@ -176,8 +184,16 @@ def _drive(slam, frames, tmp, tag):
 
 
 @pytest.fixture(scope="module")
-def runs(scene, tmp_path_factory):
-    frames, voc = scene
+def runs(tmp_path_factory):
+    """Both runs, once per session for every xdist worker
+    (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory, "test_torch_fused_kf.runs",
+                         lambda: _runs(tmp_path_factory))
+
+
+def _runs(tmp_path_factory):
+    frames, voc = shared_result(tmp_path_factory,
+                                "test_torch_fused_kf.scene", _scene)
     tmp = tmp_path_factory.mktemp("fused_kf")
     jcfg, tcfg = _configs()
     calls = []

@@ -51,6 +51,7 @@ from geoflowslam_tpu_torch.pipeline import tracking as TT
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.pipeline.system import TrackingState
 from geoflowslam_tpu_torch.state.frame import build_frame
+from test_torch_shared import shared_result
 from tests.test_torch_slice_reloc import _jax_frame, _rot_deg
 
 torch.set_num_threads(2)
@@ -78,6 +79,10 @@ def _frame(seq, t):
 
 @pytest.fixture(scope="module")
 def scene():
+    return _scene()
+
+
+def _scene():
     """The JAX-rendered sequence and the vocabulary (k = 8, 2 levels) JAX
     builds from three of its frames; the port's extractor gives the
     descriptors (bit-equal, tests/test_torch_frontend.py)."""
@@ -119,8 +124,16 @@ def _drive(slam, seq, snapshot=None):
 
 
 @pytest.fixture(scope="module")
-def reference(scene):
-    seq, jvoc = scene
+def reference(tmp_path_factory):
+    """The JAX run's outcomes and its state before the first revisit
+    frame, once per session for every xdist worker
+    (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory,
+                         "test_torch_fused_recovery.reference", _reference)
+
+
+def _reference():
+    seq, jvoc = _scene()
     jcfg, _ = _configs()
     ref = JSlam(jcfg, vocab=jvoc)
     snap = {}
@@ -130,7 +143,7 @@ def reference(scene):
                     cur=(s.cur_rot, s.cur_t), vel=s.vel, has_vel=s.has_vel,
                     levels=s._last_levels, ref_kf=s.ref_kf)
     out = _drive(ref, seq, snapshot)
-    out.update(slam=ref, snap=snap)
+    out.update(snap=snap)
     return out
 
 

@@ -49,6 +49,7 @@ from geoflowslam_tpu_torch.math import triangulate as TTRI
 from geoflowslam_tpu_torch.ops import ransac as TR
 from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
 from geoflowslam_tpu_torch.pipeline import mono_init as TMI
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -226,17 +227,23 @@ def _frame_cfgs():
 
 
 @pytest.fixture(scope="module")
-def room_frames():
-    """JAX frames (no depth) of the room at t = 0, 0.1 and 0.3 s and their
-    conversions."""
+def room_frames(tmp_path_factory):
+    """JAX frames (no depth) of the room at t = 0, 0.1 and 0.3 s (built once
+    per session for every xdist worker, tests/test_torch_shared.py) and
+    their conversions."""
+    frames = shared_result(tmp_path_factory, "test_torch_mono.room_frames",
+                           _room_frames)
+    return [(jf, convert.frame_data(jf, CPU)) for jf in frames]
+
+
+def _room_frames():
     jfc, _ = _frame_cfgs()
     cam = Camera(fx=FX, fy=FX, cx=CX, cy=CY, width=W, height=H)
     seq = SyntheticSequence(SyntheticWorld(cam), fps=10.0)
     out = []
     for t in (0.0, 0.1, 0.3):
         g, _, _ = seq.frame(t)
-        jf = j_build_frame(jnp.asarray(g), None, jfc, FX, FX, CX, CY)
-        out.append((jf, convert.frame_data(jf, CPU)))
+        out.append(j_build_frame(jnp.asarray(g), None, jfc, FX, FX, CX, CY))
     return out
 
 

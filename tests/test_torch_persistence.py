@@ -72,6 +72,7 @@ from geoflowslam_tpu_torch.pipeline.system import SlamSystem, TrackingState
 from geoflowslam_tpu_torch.retrieval import vocab as V
 from geoflowslam_tpu_torch.state import map_state as M
 from geoflowslam_tpu_torch.state import serialize as S
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -97,7 +98,14 @@ def _configs(imu=None, loop=None, **kw):
 
 
 @pytest.fixture(scope="module")
-def sequence():
+def sequence(tmp_path_factory):
+    """The frames, ground truth and IMU samples, rendered once per session
+    for every xdist worker (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory, "test_torch_persistence.sequence",
+                         _sequence)
+
+
+def _sequence():
     cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H)
     seq = SyntheticSequence(SyntheticWorld(cam), fps=FPS)
     frames, gt, imu = [], [], [None]
@@ -260,6 +268,12 @@ def test_cross_package_atlas(tmp_path):
 
 @pytest.fixture(scope="module")
 def restored(sequence, tmp_path_factory):
+    """_restored's outcomes, once per session for every xdist worker."""
+    return shared_result(tmp_path_factory, "test_torch_persistence.restored",
+                         lambda: _restored(sequence, tmp_path_factory))
+
+
+def _restored(sequence, tmp_path_factory):
     """JAX tracks N_SAVE frames and saves a session; a fresh JAX system and
     a fresh port system load it and continue N_CONT frames, then run
     N_LOC frames in localization mode and N_AFTER frames after it, then

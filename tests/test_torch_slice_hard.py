@@ -29,6 +29,7 @@ from geoflowslam_tpu_torch.io.feed_codec import unpack_m12_np
 from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.tools import run_hardmode as HM
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,14 @@ def _configs():
 
 
 @pytest.fixture(scope="module")
-def scene():
+def scene(tmp_path_factory):
+    """The m12 buffers, ground truth and vocabulary, once per session for
+    every xdist worker (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory, "test_torch_slice_hard.scene",
+                         _scene)
+
+
+def _scene():
     cam = TS.Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H)
     seq = TS.HardSyntheticSequence(TS.SyntheticWorld(cam, device="cpu"),
                                    fps=FPS)

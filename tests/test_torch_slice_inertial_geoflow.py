@@ -8,10 +8,15 @@ track_rgbd, 35 frames). The port's IMU path needs a vocabulary; both get
 one built from three frames of the scene (as
 tests/test_torch_slice_inertial.py builds it), and the JAX façade runs
 with pkt_max_pending=0, so both take their default (fused) path and
-decide on each frame before the next. The cases share one file, and so
-one process: they run the same JAX programs, which processes compiling
-them side by side would write to the persistent compilation cache at
-once.
+decide on each frame before the next. Each case runs the port, then
+takes the JAX package's run of it: the three tier-1 cases' JAX runs are
+made one after another in one process, once per session, and shared by
+the xdist workers (tests/test_torch_shared.py). They run the same JAX
+programs: in one process the first run pays the compiles (~135 s of its
+~150 s) and the others reuse them. That process is a fresh one
+(test_torch_shared.fresh_process): under `--dist load`, workers that had
+run many tests before died reading these programs from JAX's persistent
+compilation cache.
 
 * test_icp_inertial_edgeicp: use_icp beside the IMU: the ICP predictor
   from the IMU prediction and the inter-KF registrations that become
@@ -68,10 +73,12 @@ from geoflowslam_tpu_torch import convert
 from geoflowslam_tpu_torch.eval.ate import ate_rmse
 from geoflowslam_tpu_torch.ops.extractor import extract
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+from test_torch_shared import fresh_process, shared_result
 
 torch.set_num_threads(2)
 
 W, H, FX, FPS, N = 320, 240, 200.0, 10.0, 35
+CARRIED_N, CARRIED_BLANK = 50, range(20, 28)   # test_icp_carried_inertial
 
 
 def _configs(n_of_slots=0, **kw):
@@ -117,8 +124,50 @@ def _scene(n=N, blank=()):
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return _scene()
+def scene(tmp_path_factory):
+    return _shared(tmp_path_factory, "scene", _scene)
+
+
+def _carried_scene():
+    return _scene(n=CARRIED_N, blank=CARRIED_BLANK)
+
+
+def _shared(tmp_path_factory, name, compute):
+    return shared_result(tmp_path_factory,
+                         f"test_torch_slice_inertial_geoflow.{name}", compute)
+
+
+@pytest.fixture(scope="module")
+def references(tmp_path_factory):
+    """references(case): the JAX package's run of a tier-1 case
+    ("edgeicp", "carried" or "lidar"); a case asks for it once its port
+    run is done (a worker that waits for another to make them has done
+    its own part first)."""
+    def compute():
+        base = _shared(tmp_path_factory, "scene", _scene)
+        carried = _shared(tmp_path_factory, "carried_scene", _carried_scene)
+        return fresh_process(_jax_references, base, carried)
+    return lambda case: _shared(tmp_path_factory, "references", compute)[case]
+
+
+def _jax_references(base, carried):
+    return dict(edgeicp=_jax_run(base, {})[0],
+                carried=_jax_run(carried, {})[0], lidar=_jax_lidar(base))
+
+
+def _jax_lidar(scene):
+    """The JAX run with use_lidar, the staged KF steps after the IMU
+    initialized logged, and its global map's size."""
+    names = ("_insert_keyframe", "_insert_keyframe_fused")
+    saved = {name: getattr(JSlam, name) for name in names}
+    try:
+        staged = _spy_staged_kfs(JSlam, *names)
+        lidar, ref_slam = _jax_run(scene, dict(use_lidar=True))
+    finally:
+        for name, fn in saved.items():
+            setattr(JSlam, name, fn)
+    lidar.update(staged=staged, n_global=len(ref_slam.global_map.points()))
+    return lidar
 
 
 def _log_edges(slam, log):
@@ -153,15 +202,22 @@ def _run(slam, scene):
                 traj=dict((t, np.asarray(p)) for t, p in slam.trajectory))
 
 
-def _check(scene, kw, edges=True):
-    """Run both packages over `scene` and hold the port to the reference
-    (the gates of the module docstring; with `edges` False the EdgeICP
-    logs may both be empty); returns both runs and both systems."""
-    jcfg, tcfg = _configs(**kw)
+def _jax_run(scene, kw):
+    """The JAX package's run over `scene`: (its _run record, the system)."""
+    jcfg, _ = _configs(**kw)
     ref_slam = JSlam(jcfg, vocab=scene[3])
-    ref = _run(ref_slam, scene)
+    return _run(ref_slam, scene), ref_slam
+
+
+def _check(scene, kw, get_ref, edges=True):
+    """Run the port over `scene` and hold it to the reference's run that
+    get_ref() returns (the gates of the module docstring; with `edges`
+    False the EdgeICP logs may both be empty); returns the reference's
+    run, the port's run and system."""
+    _, tcfg = _configs(**kw)
     slam = SlamSystem(tcfg, "cpu", vocab=convert.vocabulary(scene[3], "cpu"))
     port = _run(slam, scene)
+    ref = get_ref()
     gt = scene[2]
     print(f"IMU init at frame {ref['init']} and {port['init']}; EdgeICP "
           f"measurements {ref['edges']} and {port['edges']}")
@@ -184,17 +240,19 @@ def _check(scene, kw, edges=True):
     assert set(port["traj"]) == set(ref["traj"])
     for t, a in ref["traj"].items():
         assert np.linalg.norm(a[:3, 3] - port["traj"][t][:3, 3]) < bound, t
-    return ref, port, ref_slam, slam
+    return ref, port, slam
 
 
-def test_icp_inertial_edgeicp(scene):
-    slam = _check(scene, {})[3]
+def test_icp_inertial_edgeicp(scene, references):
+    slam = _check(scene, {}, lambda: references("edgeicp"))[2]
     assert slam.n_icp_accepted >= 1
 
 
-def test_icp_carried_inertial():
-    blank = range(20, 28)
-    ref, port, _, slam = _check(_scene(n=50, blank=blank), {})
+def test_icp_carried_inertial(references, tmp_path_factory):
+    blank = CARRIED_BLANK
+    ref, port, slam = _check(
+        _shared(tmp_path_factory, "carried_scene", _carried_scene), {},
+        lambda: references("carried"))
     print(f"states {port['states']}; carried {slam.n_icp_carried}")
     assert port["states"] == ref["states"]
     assert all(ref["states"][i] == "OK" for i in blank)
@@ -231,23 +289,18 @@ def _spy_staged_kfs(cls, staged, fused=None):
     return log
 
 
-def test_lidar_inertial(scene, monkeypatch):
+def test_lidar_inertial(scene, references, monkeypatch):
     with monkeypatch.context() as m:
-        for cls, name in ((JSlam, "_insert_keyframe"),
-                          (JSlam, "_insert_keyframe_fused"),
-                          (SlamSystem, "_insert_keyframe_staged")):
-            m.setattr(cls, name, getattr(cls, name))
-        staged = {"reference": _spy_staged_kfs(JSlam, "_insert_keyframe",
-                                               "_insert_keyframe_fused"),
-                  "port": _spy_staged_kfs(SlamSystem,
-                                          "_insert_keyframe_staged")}
-        ref, port, ref_slam, slam = _check(scene, dict(use_lidar=True),
-                                           edges=False)
+        m.setattr(SlamSystem, "_insert_keyframe_staged",
+                  SlamSystem._insert_keyframe_staged)
+        port_staged = _spy_staged_kfs(SlamSystem, "_insert_keyframe_staged")
+        ref, port, slam = _check(scene, dict(use_lidar=True),
+                                 lambda: references("lidar"), edges=False)
+    staged = {"reference": ref["staged"], "port": port_staged}
     print(f"staged KF steps after the IMU initialized: {staged}")
     assert port["states"] == ref["states"]
     assert staged["reference"] and staged["port"] == staged["reference"]
-    n_ref, n_port = (len(ref_slam.global_map.points()),
-                     len(slam.global_map.points()))
+    n_ref, n_port = ref["n_global"], len(slam.global_map.points())
     print(f"global map {n_ref} and {n_port} points")
     assert n_ref > 500 and n_port > 500
     counts = dict(slam.plane_factor_counts)
@@ -259,5 +312,6 @@ def test_lidar_inertial(scene, monkeypatch):
 
 @pytest.mark.slow
 def test_icp_of_inertial_edgeicp(scene):
-    slam = _check(scene, dict(use_of=True, n_of_slots=256))[3]
+    kw = dict(use_of=True, n_of_slots=256)
+    slam = _check(scene, kw, lambda: _jax_run(scene, kw)[0])[2]
     assert sum(slam.of_appended) > 5

@@ -54,6 +54,7 @@ from geoflowslam_tpu_torch.parallel import dist_ba as TD
 from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
 from geoflowslam_tpu_torch.pipeline import loop_closing as TLC
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -130,14 +131,29 @@ def _kf_share(kf_valid, kf_map_id, active):
 
 @pytest.fixture(scope="module")
 def world():
+    return _world()
+
+
+def _world():
     seq, jvoc = scene()
     gt = {round(t, 4): frame(seq, v)[2] for t, v in _views()}
     return seq, jvoc, gt
 
 
 @pytest.fixture(scope="module")
-def reference(world):
-    seq, jvoc, _ = world
+def reference(tmp_path_factory):
+    """The JAX run's records and outcomes, once per session for every xdist
+    worker (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory,
+                         "test_torch_slice_loop.reference", _reference)
+
+
+def _reference():
+    """The JAX run with its loop closer's detect and verification inputs
+    and the global BA's starting state recorded; after it, the outcomes,
+    the final state, the configurations the tests replay with, and the
+    merge's global BA run to its end on the final state."""
+    seq, jvoc, _ = _world()
     jcfg, _ = configs(time_recently_lost=0.25, min_kfs_for_new_map=6,
                       loop=LOOP)
     ref = JSlam(jcfg, vocab=jvoc)
@@ -170,10 +186,19 @@ def reference(world):
     ref._gba.start = record_gba_start
     for t, g, d in _steps(seq, ref):
         ref.track_rgbd(g, d, t)
-    return dict(slam=ref, detects=detects, verifies=verifies,
-                gba_starts=gba_starts,
+    stats = ref.map_stats()
+    g = ref._gba
+    gba = dict(active=g.active, iters_total=g.iters_total)
+    if g.active:
+        while not g.step():
+            pass
+        gba["want"] = g.finish(ref.ms)
+    return dict(detects=detects, verifies=verifies, gba_starts=gba_starts,
                 traj=dict((round(t, 4), np.asarray(p))
-                          for t, p in ref.trajectory))
+                          for t, p in ref.trajectory),
+                ms=ref.ms, stats=stats, n_loops=lc.n_loops,
+                n_merges=lc.n_merges, loop_cfg=lc.cfg, map_cfg=lc._map_cfg,
+                gba=gba)
 
 
 @pytest.fixture(scope="module")
@@ -196,22 +221,21 @@ def _gates(st, n_events, share):
 
 
 def test_reference_meets_its_gates(reference):
-    ref = reference["slam"]
-    ms = ref.ms
-    _gates(ref.map_stats(), ref.loop_closer.n_loops + ref.loop_closer.n_merges,
+    ms = reference["ms"]
+    _gates(reference["stats"], reference["n_loops"] + reference["n_merges"],
            _kf_share(ms.kf_valid, ms.kf_map_id, ms.active_map))
 
 
 def test_port_meets_the_gates_and_tracks_the_reference(world, reference,
                                                        port):
     _, _, gt = world
-    slam, ref = port["slam"], reference["slam"]
+    slam = port["slam"]
     st = slam.map_stats()
     _gates(st, slam.loop_closer.n_loops + slam.loop_closer.n_merges,
            _kf_share(slam.ms.kf_valid, slam.ms.kf_map_id,
                      slam.ms.active_map))
-    assert slam.loop_closer.n_merges == ref.loop_closer.n_merges
-    assert st["n_maps"] == ref.map_stats()["n_maps"] >= 2
+    assert slam.loop_closer.n_merges == reference["n_merges"]
+    assert st["n_maps"] == reference["stats"]["n_maps"] >= 2
     rt, pt = reference["traj"], port["traj"]
     bound = max(0.02, ate_rmse(list(rt.items()), list(gt.items()))[
         "ate_rmse"])
@@ -256,7 +280,7 @@ def test_detect_step_matches_reference(world, reference):
     1e-6 (a score of 1 - 6e-8 reads 9999 where 1.0 reads 10000)."""
     _, jvoc, _ = world
     tvoc = convert.vocabulary(jvoc, "cpu")
-    cfg = reference["slam"].cfg.loop
+    cfg = reference["loop_cfg"]
     assert len(reference["detects"]) >= 6
     for db, ms, slot, groups, counts, want, db2, g2, c2 in reference[
             "detects"]:
@@ -285,13 +309,11 @@ def _rot_deg(ra, rb):
 def verified(reference):
     """The reference's verification of the candidate it closed, and the
     port's on the converted state with the same Sim3 RANSAC draws."""
-    ref = reference["slam"]
-    lc = ref.loop_closer
+    loop_cfg, map_cfg = reference["loop_cfg"], reference["map_cfg"]
     ms, cur, cand, key, _ = next(v for v in reference["verifies"] if v[4])
     _, k = jax.random.split(key)
     scal_j, s_j, r_j, t_j = JLC._verify_sim3_fused(
-        ms, jnp.int32(cur), jnp.int32(cand), k, lc.cfg.fix_scale,
-        lc._map_cfg)
+        ms, jnp.int32(cur), jnp.int32(cand), k, loop_cfg.fix_scale, map_cfg)
     m_idx, _ = JM.match_descriptors(
         ms.kf_desc[cur], ms.kf_kp_valid[cur] & (ms.kf_obs_mp[cur] >= 0),
         ms.kf_desc[cand], ms.kf_kp_valid[cand] & (ms.kf_obs_mp[cand] >= 0),
@@ -302,24 +324,24 @@ def verified(reference):
     _, tcfg = configs(loop=LOOP)
     tms = convert.map_state(ms, "cpu")
     scal_t, s_t, r_t, t_t = TLC.verify_sim3(
-        tms, cur, cand, None, lc.cfg.fix_scale, tcfg.map_cfg(),
+        tms, cur, cand, None, loop_cfg.fix_scale, tcfg.map_cfg(),
         sample_sets=torch.from_numpy(np.array(sets)).long())
     return dict(ms=ms, cur=cur, cand=cand, j=(scal_j, s_j, r_j, t_j),
                 t=(scal_t, s_t, r_t, t_t))
 
 
 def test_verify_sim3_matches_reference(reference, verified):
-    lc = reference["slam"].loop_closer
+    cfg = reference["loop_cfg"]
     (scal_j, s_j, r_j, t_j), (scal_t, s_t, r_t, t_t) = (verified["j"],
                                                         verified["t"])
     scal_j, scal_t = np.asarray(scal_j), scal_t.numpy()
     # RANSAC, GN and projection counts exact; thickness in whole mm
     np.testing.assert_array_equal(scal_t[:3], scal_j[:3])
     assert abs(int(scal_t[3]) - int(scal_j[3])) <= 1
-    gate = lambda s: (s[0] >= lc.cfg.min_sim3_inliers                # noqa
-                      and s[1] >= lc.cfg.min_sim3_inliers
-                      and s[2] >= lc.cfg.min_proj_verify
-                      and s[3] >= 1e3 * lc.cfg.min_structure_m)
+    gate = lambda s: (s[0] >= cfg.min_sim3_inliers                   # noqa
+                      and s[1] >= cfg.min_sim3_inliers
+                      and s[2] >= cfg.min_proj_verify
+                      and s[3] >= 1e3 * cfg.min_structure_m)
     assert bool(gate(scal_t)) == bool(gate(scal_j)) is True
     assert abs(float(s_t) - float(s_j)) < 1e-4
     assert np.linalg.norm(t_t.numpy() - np.asarray(t_j)) < 1e-3
@@ -327,10 +349,13 @@ def test_verify_sim3_matches_reference(reference, verified):
 
 
 @pytest.fixture(scope="module")
-def corrected(reference, verified):
+def corrected(world, reference, verified):
     """Merge then the essential-graph correction, from the reference's
-    verified Sim3, on both sides."""
-    lc = reference["slam"].loop_closer
+    verified Sim3, on both sides (the JAX side by a loop closer with the
+    reference's configuration)."""
+    ms = verified["ms"]
+    lc = JLC.LoopCloser(world[1], ms.k_max, reference["loop_cfg"],
+                        map_cfg=reference["map_cfg"])
     ms, cur, cand = verified["ms"], verified["cur"], verified["cand"]
     _, s, rot, t = verified["j"]
     r1, t1 = ms.kf_rot[cur], ms.kf_t[cur]
@@ -365,26 +390,24 @@ def test_correct_loop_matches_reference(corrected):
 
 def test_async_global_ba_matches_reference(reference):
     """The global BA the merge started, finished on the final state: the
-    reference's AsyncGBA runs its remaining micro-steps; the port's starts
-    from the same (converted) snapshot and runs all of them. KFs inserted
-    after the snapshot take the correction through the temporal chain.
-    KF poses within 1 mm and 0.05 deg, points within 1 cm."""
-    ref = reference["slam"]
-    g = ref._gba
-    assert g.active and len(reference["gba_starts"]) == 1
-    start_ms, final_ms = reference["gba_starts"][0], ref.ms
+    reference's AsyncGBA runs its remaining micro-steps (at the end of the
+    reference's run, in its fixture); the port's starts from the same
+    (converted) snapshot and runs all of them. KFs inserted after the
+    snapshot take the correction through the temporal chain. KF poses
+    within 1 mm and 0.05 deg, points within 1 cm."""
+    g = reference["gba"]
+    assert g["active"] and len(reference["gba_starts"]) == 1
+    start_ms, final_ms = reference["gba_starts"][0], reference["ms"]
     new_kfs = (np.asarray(final_ms.kf_valid)
                & ~np.asarray(start_ms.kf_valid)).sum()
-    while not g.step():
-        pass
-    want = g.finish(final_ms)
+    want = g["want"]
     _, tcfg = configs(loop=LOOP)
     tg = TLM.AsyncGBA(tcfg.map_cfg())
     tg.start(convert.map_state(start_ms, "cpu"))
     n = 1
     while not tg.step():
         n += 1
-    assert n == g.iters_total
+    assert n == g["iters_total"]
     got = tg.finish(convert.map_state(final_ms, "cpu"))
     valid = np.asarray(want.kf_valid)
     assert new_kfs >= 1 and valid.sum() >= 8
@@ -406,7 +429,7 @@ def test_fuse_pair_matches_reference(reference, verified, corrected):
     the same observations and map-point validity, exactly."""
     cur, cand = verified["cur"], verified["cand"]
     ms = corrected[1]
-    mcfg = reference["slam"].loop_closer._map_cfg
+    mcfg = reference["map_cfg"]
     want = JLM.fuse_pair(ms, jnp.int32(cur), jnp.int32(cand), mcfg)
     _, tcfg = configs(loop=LOOP)
     got = TLM.fuse_pair(convert.map_state(ms, "cpu"), cur, cand,
@@ -423,8 +446,7 @@ def test_global_ba_step_matches_reference(reference):
     """LoopConfig.run_global_ba's synchronous global BA on the reference's
     final (merged) state: KF poses within 1 mm and 0.05 deg, points within
     1 cm."""
-    ms = reference["slam"].ms
-    mcfg = reference["slam"].loop_closer._map_cfg
+    ms, mcfg = reference["ms"], reference["map_cfg"]
     want = JLM.global_ba_step(ms, mcfg)
     _, tcfg = configs(loop=LOOP)
     got = TLM.global_ba_step(convert.map_state(ms, "cpu"), tcfg.map_cfg())
@@ -472,8 +494,8 @@ def test_async_global_ba_mesh_matches_reference(reference):
     JAX's 8-device virtual mesh against the port's LandMesh of 8 CPU
     shards, every micro-step one landmark-sharded iteration, finished on
     the final state. The same bounds."""
-    start_ms, final_ms = reference["gba_starts"][0], reference["slam"].ms
-    mcfg = reference["slam"].loop_closer._map_cfg
+    start_ms, final_ms = reference["gba_starts"][0], reference["ms"]
+    mcfg = reference["map_cfg"]
     g = JLM.AsyncGBA(mcfg, mesh=_jax_mesh8())
     g.start(start_ms)
     while not g.step():
@@ -497,8 +519,7 @@ def test_global_ba_step_mesh_matches_reference(reference):
     global_ba_step_distributed (ba_pts 4096, 10 iterations) on the merged
     state, JAX's 8-device mesh against the port's 8 CPU shards. The same
     bounds, and the pruned observations equal."""
-    ms = reference["slam"].ms
-    mcfg = reference["slam"].loop_closer._map_cfg
+    ms, mcfg = reference["ms"], reference["map_cfg"]
     want = JLM.global_ba_step_distributed(ms, mcfg, _jax_mesh8())
     _, tcfg = configs(loop=LOOP)
     got = TLM.global_ba_step_distributed(convert.map_state(ms, "cpu"),

@@ -34,6 +34,7 @@ from geoflowslam_tpu.ops.extractor import FeatureSet as JFeat
 from geoflowslam_tpu.ops.gms import gms_filter
 from geoflowslam_tpu.pipeline import tracking as JT
 from geoflowslam_tpu.pipeline.system import SlamSystem as JSlam
+from geoflowslam_tpu.pipeline.system import _build_reloc_jit
 from geoflowslam_tpu.retrieval import kf_database as JDB
 from geoflowslam_tpu.retrieval import vocab as JV
 from geoflowslam_tpu.state.frame import FrameData as JFrameData
@@ -47,6 +48,7 @@ from geoflowslam_tpu_torch.pipeline.system import SlamSystem
 from geoflowslam_tpu_torch.retrieval import kf_database as TDB
 from geoflowslam_tpu_torch.retrieval import vocab as TV
 from geoflowslam_tpu_torch.state.frame import build_frame
+from test_torch_shared import shared_result
 from tests.test_torch_slice_loop import FPS, H, W, configs, frame, scene
 
 torch.set_num_threads(2)
@@ -59,6 +61,10 @@ RELOC = dict(time_recently_lost=30.0, min_kfs_for_new_map=99)
 
 @pytest.fixture(scope="module")
 def world():
+    return _world()
+
+
+def _world():
     seq, jvoc = scene()
     gt = {round(t, 4): _view(seq, v)[2] for t, v in _views()}
     noisy_g, noisy_d, _ = frame(seq, T_RE)
@@ -140,7 +146,16 @@ def _drive(slam, world, snapshot=None):
 
 
 @pytest.fixture(scope="module")
-def reference(world):
+def reference(tmp_path_factory):
+    """The JAX run's outcomes and its maps after the first pass and after
+    the loss, once per session for every xdist worker
+    (tests/test_torch_shared.py)."""
+    return shared_result(tmp_path_factory,
+                         "test_torch_slice_reloc.reference", _reference)
+
+
+def _reference():
+    world = _world()
     jcfg, _ = configs(**RELOC)
     ref = JSlam(jcfg, vocab=world[1])
     snap = {}
@@ -152,7 +167,8 @@ def reference(world):
         else:
             snap.update(ms=s.ms)
     out = _drive(ref, world, snapshot)
-    out.update(slam=ref, **snap)
+    out.update(min_ok=ref.cfg.min_inliers_ok, n_f2f=len(ref.f2f_reproj),
+               **snap)
     return out
 
 
@@ -177,7 +193,7 @@ def _gates(run, min_ok):
 
 
 def test_reference_meets_its_gates(reference):
-    _gates(reference, reference["slam"].cfg.min_inliers_ok)
+    _gates(reference, reference["min_ok"])
 
 
 def test_port_meets_the_gates_and_tracks_the_reference(world, reference,
@@ -186,8 +202,8 @@ def test_port_meets_the_gates_and_tracks_the_reference(world, reference,
     assert port["slam"].n_reloc >= 1
     # record_reproj_err logs both stages of every tracked frame, as the
     # reference's staged path does
-    ps, rs = port["slam"], reference["slam"]
-    assert len(ps.f2f_reproj) == len(ps.f2m_reproj) == len(rs.f2f_reproj) > 0
+    ps = port["slam"]
+    assert len(ps.f2f_reproj) == len(ps.f2m_reproj) == reference["n_f2f"] > 0
     assert port["stats"]["n_maps"] == reference["stats"]["n_maps"]
     gt = world[2]
     rt, pt = reference["traj"], port["traj"]
@@ -225,10 +241,9 @@ def _jax_frame(tf):
 
 
 def test_reloc_core_matches_reference(world, reference):
-    ref = reference["slam"]
     jvoc, ms = world[1], reference["ms"]
     noisy_g, noisy_d = world[3]
-    _, tcfg = configs(**RELOC)
+    jcfg, tcfg = configs(**RELOC)
     tframe = build_frame(torch.from_numpy(noisy_g), torch.from_numpy(noisy_d),
                          tcfg.frame, tcfg.fx, tcfg.fy, tcfg.cx, tcfg.cy)
     jframe = _jax_frame(tframe)
@@ -237,7 +252,10 @@ def test_reloc_core_matches_reference(world, reference):
         db = JDB.add_keyframe(db, jvoc, int(slot), ms.kf_desc[slot],
                               ms.kf_kp_valid[slot])
     key = jax.random.PRNGKey(11)
-    n_j, rot_j, t_j, obs_j = ref._reloc_jit(db, ms, jframe, key)
+    # the reference system's own relocalization dispatch
+    reloc_jit = _build_reloc_jit(jvoc, jcfg.track_cfg(), W, H, jcfg.fx,
+                                 jcfg.fy, jcfg.cx, jcfg.cy)
+    n_j, rot_j, t_j, obs_j = reloc_jit(db, ms, jframe, key)
 
     # the reference's PnP draws: its per-candidate keys and valid masks
     feat = jframe.feat
@@ -264,7 +282,7 @@ def test_reloc_core_matches_reference(world, reference):
         convert.map_state(ms, "cpu"), tframe, None,
         tcfg.track_cfg(), W, H, sample_sets=torch.from_numpy(
             np.stack(sets)).long())
-    min_ok = ref.cfg.min_inliers_ok
+    min_ok = reference["min_ok"]
     assert (int(n_t) >= min_ok) == (int(n_j) >= min_ok) is True
     assert abs(int(n_t) - int(n_j)) <= 2, (int(n_t), int(n_j))
     assert int(cand) in np.asarray(idx).tolist()

@@ -23,7 +23,10 @@ JAX SlamSystem on the same frames, at the JAX e2e tests' small sizes:
 
 Every system runs at one size (400 features, k_max 24, m_max 4096, 1024
 cloud points), so that the reference's compiled programs serve all of
-them. Gates: the same state on every frame, the same KF count +-1, the IMU
+them: the reference's runs of the first four tier-1 cases are made one
+after another in one process, once per session (the `references`
+fixture, shared by the xdist workers through tests/test_torch_shared.py),
+and each case runs the port against its run. Gates: the same state on every frame, the same KF count +-1, the IMU
 initialized on the same frame; every returned pose within max(2 cm, the
 reference's own ATE) of the reference's; the reference's own accuracy
 gates on the port (ATE < 6 cm; fisheye < 5 cm, with_scale=False).
@@ -48,6 +51,7 @@ from geoflowslam_tpu.state.frame import FrameConfig as JFrame
 from geoflowslam_tpu_torch import config as C
 from geoflowslam_tpu_torch.eval.ate import ate_rmse
 from geoflowslam_tpu_torch.pipeline.system import SlamSystem
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -71,7 +75,12 @@ def _imu(seq, i):
 
 
 @pytest.fixture(scope="module")
-def rectified():
+def rectified(tmp_path_factory):
+    return shared_result(tmp_path_factory,
+                         "test_torch_slice_stereo.rectified", _rectified)
+
+
+def _rectified():
     """35 rectified pairs (the right camera at t_cw + (-0.1, 0, 0),
     tests/test_e2e_stereo.py:20-27), their IMU samples and ground truth."""
     cam = JS.Camera(fx=200.0, fy=200.0, cx=W / 2, cy=H / 2, width=W,
@@ -131,7 +140,12 @@ def _rig():
 
 
 @pytest.fixture(scope="module")
-def fisheye():
+def fisheye(tmp_path_factory):
+    return shared_result(tmp_path_factory, "test_torch_slice_stereo.fisheye",
+                         _fisheye)
+
+
+def _fisheye():
     """25 frames of the dual-KB8 rig, both images ray-cast through KB8."""
     fx = 140.0
     caml = JS.Camera(fx=fx, fy=fx, cx=W / 2, cy=H / 2, width=W, height=H,
@@ -155,7 +169,12 @@ def fisheye():
 
 
 @pytest.fixture(scope="module")
-def rgbd():
+def rgbd(tmp_path_factory):
+    return shared_result(tmp_path_factory, "test_torch_slice_stereo.rgbd",
+                         _rgbd)
+
+
+def _rgbd():
     """tests/test_torch_slice_inertial.py's scenario: 36 frames, 8 of them
     blank after the IMU initializes."""
     cam = JS.Camera(fx=200.0, fy=200.0, cx=W / 2, cy=H / 2, width=W,
@@ -214,21 +233,46 @@ def _compare(port, ref, frames, ate_gate, with_scale=True, tail=False):
     return ates
 
 
-def test_track_stereo(rectified):
-    jcfg, tcfg = _stereo_configs(imu=False)
+@pytest.fixture(scope="module")
+def references(tmp_path_factory):
+    """A getter of the reference's runs of test_track_stereo,
+    test_track_stereo_inertial, test_track_stereo_fisheye and
+    test_rgbd_inertial_staged, made in one process one after another, once
+    per session for every xdist worker. A case calls it once its port run
+    is done (a worker that waits for another to make them has done its
+    own part first)."""
+    def compute():
+        get = lambda name, fn: shared_result(                    # noqa
+            tmp_path_factory, f"test_torch_slice_stereo.{name}", fn)
+        rect, fish = get("rectified", _rectified), get("fisheye", _fisheye)
+        return dict(
+            stereo=_run(JSlam(_stereo_configs(imu=False)[0]), rect[:30],
+                        "track_stereo"),
+            stereo_inertial=_run(JSlam(_stereo_configs(imu=True)[0]), rect,
+                                 "track_stereo", "track_stereo_inertial"),
+            fisheye=_run(JSlam(_fisheye_configs(imu=False)[0]), fish[:20],
+                         "track_stereo_fisheye"),
+            rgbd_staged=_run(
+                JSlam(_rgbd_configs(record_reproj_err=True)[0]),
+                get("rgbd", _rgbd), "track_rgbd", "track_rgbd_inertial"))
+    return lambda: shared_result(tmp_path_factory,
+                                 "test_torch_slice_stereo.references",
+                                 compute)
+
+
+def test_track_stereo(rectified, references):
+    _, tcfg = _stereo_configs(imu=False)
     frames = rectified[:30]
     port = _run(SlamSystem(tcfg, "cpu"), frames, "track_stereo")
-    ref = _run(JSlam(jcfg), frames, "track_stereo")
-    _compare(port, ref, frames, 0.06)
+    _compare(port, references()["stereo"], frames, 0.06)
     assert port["stats"]["n_kfs"] >= 2
 
 
-def test_track_stereo_inertial(rectified):
-    jcfg, tcfg = _stereo_configs(imu=True)
+def test_track_stereo_inertial(rectified, references):
+    _, tcfg = _stereo_configs(imu=True)
     slam = SlamSystem(tcfg, "cpu")
     port = _run(slam, rectified, "track_stereo", "track_stereo_inertial")
-    ref = _run(JSlam(jcfg), rectified, "track_stereo",
-               "track_stereo_inertial")
+    ref = references()["stereo_inertial"]
     assert ref["init"] is not None
     _compare(port, ref, rectified, 0.06, tail=True)
     assert slam.imu_modes.get("kf", 0) + slam.imu_modes.get("prior", 0) > 0
@@ -264,12 +308,11 @@ def test_staged_time_guards(rectified):
         np.testing.assert_allclose(tp, tr, atol=1e-6)
 
 
-def test_track_stereo_fisheye(fisheye):
-    jcfg, tcfg = _fisheye_configs(imu=False)
+def test_track_stereo_fisheye(fisheye, references):
+    _, tcfg = _fisheye_configs(imu=False)
     frames = fisheye[:20]
     port = _run(SlamSystem(tcfg, "cpu"), frames, "track_stereo_fisheye")
-    ref = _run(JSlam(jcfg), frames, "track_stereo_fisheye")
-    _compare(port, ref, frames, 0.05, with_scale=False)
+    _compare(port, references()["fisheye"], frames, 0.05, with_scale=False)
 
 
 def _rgbd_configs(**kw):
@@ -284,21 +327,25 @@ def _rgbd_configs(**kw):
                            imu=C.ImuConfig(**ic), **sc))
 
 
-def _rgbd_inertial(frames, **kw):
+def _rgbd_inertial(frames, get_ref=None, **kw):
+    """The port over `frames` against the reference's run that get_ref()
+    returns (made here when get_ref is None)."""
     jcfg, tcfg = _rgbd_configs(**kw)
     slam = SlamSystem(tcfg, "cpu")
     port = _run(slam, frames, "track_rgbd", "track_rgbd_inertial")
-    ref = _run(JSlam(jcfg), frames, "track_rgbd", "track_rgbd_inertial")
+    ref = (_run(JSlam(jcfg), frames, "track_rgbd", "track_rgbd_inertial")
+           if get_ref is None else get_ref())
     assert ref["init"] is not None and ref["init"] < BLANK[0]
     assert all(ref["states"][i] == "RECENTLY_LOST" for i in BLANK)
     _compare(port, ref, frames, 0.06)
     return slam
 
 
-def test_rgbd_inertial_staged(rgbd):
+def test_rgbd_inertial_staged(rgbd, references):
     """record_reproj_err: every frame takes the staged step, the blank ones
     dead-reckon from the IMU prediction and insert a KF while lost."""
-    slam = _rgbd_inertial(rgbd, record_reproj_err=True)
+    slam = _rgbd_inertial(rgbd, lambda: references()["rgbd_staged"],
+                          record_reproj_err=True)
     assert len(slam.f2m_reproj) == len(rgbd) - 1
     assert slam.n_vi_accepted > 0
 

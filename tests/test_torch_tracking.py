@@ -30,6 +30,7 @@ from geoflowslam_tpu_torch.pipeline import local_mapping as TLM
 from geoflowslam_tpu_torch.pipeline import tracking as TT
 from geoflowslam_tpu_torch.solvers import pose_opt as TPO
 from geoflowslam_tpu_torch.state import map_state as TM
+from test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -69,10 +70,10 @@ def _jax_mapping_step(ms, frame, rot, t, time_rel, obs, ref, slot, jcfg):
         None, None, jcfg.track_cfg(), jcfg.map_cfg(), kw, False)
 
 
-@pytest.fixture(scope="module")
-def built():
+def build_map():
     """The JAX package's map after N_BUILD frames (staged loop: init, motion
-    model, local map, a KF every KF_EVERY frames), and the next frame."""
+    model, local map, a KF every KF_EVERY frames), and the next frame, built
+    and as its gray and depth images."""
     jcfg, tcfg = _configs()
     cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H)
     seq = SyntheticSequence(SyntheticWorld(cam), fps=10.0)
@@ -81,7 +82,8 @@ def built():
                                              W / 2, H / 2))
     lw = jax.jit(lambda ms, ref: JM.local_window(ms, ref, jtc.local_window,
                                                  jtc.lm_max_candidates))
-    frames = [jbf(*seq.frame(i / 10.0)[:2]) for i in range(N_BUILD + 1)]
+    images = [seq.frame(i / 10.0)[:2] for i in range(N_BUILD + 1)]
+    frames = [jbf(*im) for im in images]
     ms = JM.create(jcfg.k_max, 400, jcfg.m_max)
     ms, slot, res = JT.stereo_initialization(ms, frames[0], jnp.float32(0.0),
                                              jtc)
@@ -110,7 +112,16 @@ def built():
     pr, pt = JL.se3_compose(vel[0], vel[1], *cur)
     return dict(jcfg=jcfg, tcfg=tcfg, ms=ms, frame=frames[N_BUILD],
                 last_levels=frames[N_BUILD - 1].feat.level, last_obs=last_obs,
-                pred=(pr, pt), ref=ref, masks=masks)
+                pred=(pr, pt), ref=ref, masks=masks,
+                gray=images[N_BUILD][0], depth=images[N_BUILD][1])
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    """build_map's result (numpy arrays), once per session for every xdist
+    worker (tests/test_torch_shared.py); test_torch_fused_track.py shares
+    it."""
+    return shared_result(tmp_path_factory, "tracking_built", build_map)
 
 
 def test_pose_optimization():
